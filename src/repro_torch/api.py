@@ -120,6 +120,12 @@ class RunConfig:
             todo.append("plane.kind='sharded' (ROADMAP Queue 1 #14)")
         if self.plane.store != "dense":
             todo.append("plane.store='paged' (ROADMAP Queue 1 #10)")
+        if self.plane.active_slots is not None or \
+                self.plane.prefetch_depth != PlaneConfig.prefetch_depth:
+            todo.append("plane.active_slots / plane.prefetch_depth of the "
+                        "paged store (ROADMAP Queue 1 #10)")
+        if self.time_scale != RunConfig.time_scale:
+            todo.append("time_scale of the async loop (ROADMAP Queue 1 #11)")
         if self.server_opt.name is not None:
             todo.append("server_opt (ROADMAP Queue 1 #6)")
         if self.autosave.every is not None or self.autosave.dir is not None:

@@ -25,7 +25,8 @@ folded trunk is folded in float64 and then rounded to float32.
 
 ``mode="kernel"`` (the default) goes through the kernel's wrapper, which
 takes the plain version for CPU tensors; ``mode="torch"`` (the twin of
-the reference's ``"xla"``) is a plain torch MAC for CPU tensors only.
+the reference's ``"xla"``) calls the plain version ``weighted_agg_ref``
+directly, for CPU tensors only.
 Every blend is out of place: the result is a new buffer.
 """
 from __future__ import annotations
@@ -37,6 +38,7 @@ import torch
 
 from repro_torch._device import to_device
 from repro_torch.core import aggregation as agg
+from repro_torch.kernels.weighted_agg.ref import weighted_agg_ref
 from repro_torch.kernels.weighted_agg.weighted_agg import weighted_agg_flat2d
 
 Params = Dict[str, torch.Tensor]
@@ -110,12 +112,9 @@ class AggEngine:
             if dev.type != "cpu":
                 raise ValueError("engine mode 'torch' runs on CPU tensors "
                                  "only; use mode='kernel' on the card")
-            c = torch.from_numpy(coefs)
-            if cids is not None:
-                rows = rows[torch.from_numpy(cids.astype(np.int64))]
-            acc = c[0] * g_flat.float()
-            acc = acc + torch.tensordot(c[1:], rows.float(), dims=1)
-            return acc.to(self.storage_dtype)
+            return weighted_agg_ref(
+                g_flat, rows, torch.from_numpy(coefs),
+                None if cids is None else torch.from_numpy(cids))
         cids_t = None
         if cids is not None:
             if cids.size and (cids.min() < 0 or cids.max() >= rows.shape[0]):

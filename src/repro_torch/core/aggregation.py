@@ -109,7 +109,12 @@ def weighted_sum_pytrees(coef0: float, global_params: Params,
                          coefs: Sequence[float], client_params_list
                          ) -> Params:
     """w ← c0·w_global + Σ_j c_j·w_j, leaf by leaf; coefficients are
-    rounded to float32 and the sum accumulates in float32."""
+    rounded to float32 and the sum accumulates in float32.  CPU tensors
+    only: on the card every MAC goes through the ``weighted_agg`` kernel
+    (``use_engine=True`` or a client plane)."""
+    if any(t.device.type != "cpu" for t in global_params.values()):
+        raise ValueError("the per-leaf oracle runs on CPU tensors only; "
+                         "use use_engine=True on the card")
     c0 = float(np.float32(coef0))
     cs = [float(np.float32(c)) for c in coefs]
     out = {}

@@ -41,9 +41,12 @@
 namespace {
 
 constexpr int kThreads = 256;
-// enough resident blocks to fill every SM; the grid-stride loop covers
-// the rest of the buffer
-constexpr int kBlocksPerSM = 32;
+// The grid covers the buffer with one chunk per thread and the hardware's
+// block scheduler balances the last wave.  Capping the grid at one
+// resident wave (8 blocks of 256 per SM) and striding the rest ran the
+// FedAvg round (C = 100, n = 1,663,370) 17% slower on an H100 (PERF.md,
+// "Launch configuration").  The grid-stride loop keeps any n correct.
+constexpr int64_t kMaxBlocks = 0x7fffffff;
 
 // -- loads and stores of V consecutive elements as f32 ---------------------
 template <typename T, int V>
@@ -191,15 +194,9 @@ template <typename T>
 void launch(const void* g, const void* rows, int64_t row_stride,
             int64_t num_rows, const void* cids, int C, const void* coefs,
             void* out, int64_t n, bool vectorized, cudaStream_t stream) {
-  int device = 0;
-  int sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   const int64_t work = vectorized ? n / VecWidth<T>::value + 1 : n;
   int64_t blocks = (work + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(sms > 0 ? sms : 1) * kBlocksPerSM;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   const T* gp = static_cast<const T*>(g);
   const T* rp = static_cast<const T*>(rows);
   const int32_t* cp = static_cast<const int32_t*>(cids);

@@ -97,6 +97,23 @@ def test_engine_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("algorithm", ["fedavg", "csmaafl"])
+def test_per_leaf_path_refuses_the_card(cuda, algorithm):
+    """use_engine=False without a plane is the CPU oracle: on the card it
+    raises instead of blending in plain torch."""
+    cfg_cnn = CNNConfig(conv1=4, conv2=8, fc=32)
+    task = CNNTask(device=cuda, iid=False, num_clients=5, train_n=600,
+                   test_n=200, local_batches_per_step=1, cnn_cfg=cfg_cnn)
+    cfg = api.RunConfig(algorithm=algorithm, iterations=2, use_engine=False,
+                        plane=api.PlaneConfig(kind="none"),
+                        fleet=api.FleetConfig(num_clients=5))
+    before = wa.weighted_agg_flat2d.launches
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        api.run(task, cfg)
+    assert wa.weighted_agg_flat2d.launches == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("algorithm,iterations",
                          [("fedavg", 2), ("csmaafl", 30),
                           ("afl_baseline", 10)])

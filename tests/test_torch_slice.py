@@ -181,7 +181,10 @@ def test_unported_options_raise():
            dict(server_opt=t_api.ServerOptConfig(name="adam")),
            dict(autosave=t_api.AutosaveConfig(every=4, dir="ckpt")),
            dict(plane=t_api.PlaneConfig(kind="sharded")),
-           dict(plane=t_api.PlaneConfig(store="paged"))]
+           dict(plane=t_api.PlaneConfig(store="paged")),
+           dict(plane=t_api.PlaneConfig(active_slots=4)),
+           dict(plane=t_api.PlaneConfig(prefetch_depth=3)),
+           dict(time_scale=0.01)]
     for kw in bad:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_api.run(None, t_api.RunConfig(**kw))

@@ -1,27 +1,40 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases, one JSON line each:
+Two main paths: federated learning (CSMAAFL and its baselines on the
+paper's CNN, every server blend through the weighted-aggregation kernel)
+and LM serving (qwen2-0.5b at full width, every prefill attention
+through the flash-attention kernel).  Phases, one JSON line each:
 
-1. device  — card name and count, ``nvidia-smi`` name and power limit;
-2. build   — nvcc builds every kernel from the sources in this checkout;
-3. kernel  — each kernel against its plain PyTorch version on the card,
-             at the main path's shapes and at a ragged one;
-4. reduced — a narrow-CNN CSMAAFL run on the CPU (plain version) and on
-             the card (kernel): final parameters ≤1e-5, times equal;
-5. main    — the main path at the paper CNN's full width, M = 100:
-             FedAvg, CSMAAFL and the §III-B baseline through ``api.run``,
-             with the kernel's launch count read around it;
-6. timing  — kernel, plain version and the one PyTorch call computing
-             the same function, timed with CUDA events;
-7. profile — device busy share and device time by kernel over a short
-             full-width CSMAAFL run (torch.profiler).
+1.  device   — card name and count, ``nvidia-smi`` name and power limit;
+2.  build    — nvcc builds every kernel from the sources in this checkout
+               (all at once), with ptxas registers and spills;
+3.  kernel   — weighted_agg against its plain PyTorch version on the
+               card, at the main path's shapes and at a ragged one;
+4.  flash    — flash_attention_fwd against its plain version (output and
+               log-sum-exp), f32 and bf16, window, softcap, GQA, ragged S;
+5.  reduced  — a narrow-CNN CSMAAFL run on the CPU (plain version) and on
+               the card (kernel): final parameters ≤1e-5, times equal;
+6.  reduced_serve — reduced qwen2-0.5b prefill + 8 decode steps on the
+               CPU and on the card: logits and caches ≤1e-5, tokens equal;
+7.  main     — the AFL main path at the paper CNN's full width, M = 100:
+               FedAvg, CSMAAFL and the §III-B baseline through ``api.run``;
+8.  serve    — the serving main path at qwen2-0.5b's full width: prefill
+               of 4 × 512 tokens (one flash launch per layer), 32 decode
+               steps, ``BatchedServer`` over 8 requests; then the same
+               prefill through the naive path for comparison;
+9.  timing   — each kernel, its plain version and the one PyTorch call
+               computing the same function, timed with CUDA events;
+10. profile  — device busy share and device time by kernel over a short
+               CSMAAFL run and over a full-width prefill + decode.
 
-Then the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line.  Any failed check raises: the script exits non-zero and prints no
-result, as it does when no CUDA card is present or the port is missing.
+Each main path's launch counts are set to 0 just before it and read just
+after.  Then the ``{"kernels": [...]}`` line and, last, the
+``{"ok": true, ...}`` line.  Any failed check raises: the script exits
+non-zero and prints no result, as it does when no CUDA card is present
+or the port is missing.
 """
 import json
 import os
@@ -37,6 +50,25 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 KERNEL_SOURCE = "src/repro_torch/kernels/weighted_agg/csrc/weighted_agg.cu"
 KERNEL_REPLACES = "src/repro/kernels/weighted_agg/weighted_agg.py:106"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:100"
+# B, H, Hkv, S, D, window, softcap, dtype: the reference's FA_CASES
+# (tests/test_kernels.py) and qwen2-0.5b's attention (14 heads over 2 kv
+# heads, head_dim 64) at S = 512 and at a ragged S = 200
+FLASH_CASES = [
+    (2, 4, 4, 128, 64, 0, 0.0, "float32"),
+    (1, 8, 2, 256, 64, 0, 0.0, "float32"),
+    (2, 4, 2, 200, 32, 64, 0.0, "float32"),
+    (1, 4, 4, 128, 64, 0, 50.0, "float32"),
+    (1, 2, 1, 512, 128, 128, 0.0, "float32"),
+    (1, 4, 2, 256, 64, 0, 0.0, "bfloat16"),
+    (1, 3, 1, 96, 16, 32, 30.0, "float32"),
+    (4, 14, 2, 512, 64, 0, 0.0, "float32"),
+    (4, 14, 2, 200, 64, 0, 0.0, "float32"),
+    (4, 14, 2, 512, 64, 0, 0.0, "bfloat16"),
+    (4, 14, 2, 200, 64, 0, 0.0, "bfloat16"),
+]
+SERVE_B, SERVE_S, SERVE_STEPS = 4, 512, 32
 
 
 class SmokeFailure(RuntimeError):
@@ -61,7 +93,7 @@ def nvidia_smi_line():
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the kernel against its plain version
+# phases 3 and 4: each kernel against its plain version
 # ---------------------------------------------------------------------------
 def bf16_ulp(x):
     import torch
@@ -121,8 +153,44 @@ def kernel_vs_plain(device):
     return cases, worst
 
 
+def flash_vs_plain(device):
+    """flash_attention_fwd against attention_ref on the card, on the
+    model's (B, S, H, D) layout read through strides.  Tolerances are the
+    reference's FA bounds: f32 2e-5·(1+max|ref|), bf16 2e-2 (the output
+    is rounded to bf16); the f32 log-sum-exp 2e-5·(1+max|lse|)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    worst, cases = {}, []
+    for B, H, Hkv, S, D, win, cap, dtype in FLASH_CASES:
+        tdt = getattr(torch, dtype)
+        q, k, v = (torch.randn(B, S, h, D, generator=gen, device=device)
+                   .to(tdt).transpose(1, 2) for h in (H, Hkv, Hkv))
+        kw = dict(causal=True, window=win, logit_cap=cap, return_lse=True)
+        out, lse = flash_attention_fwd(q, k, v, **kw)
+        ref, ref_lse = attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        lse_err = float((lse - ref_lse).abs().max())
+        tol = 2e-2 if dtype == "bfloat16" else \
+            2e-5 * (1.0 + float(ref.float().abs().max()))
+        lse_tol = 2e-5 * (1.0 + float(ref_lse.abs().max()))
+        case = {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D, "window": win,
+                "cap": cap, "dtype": dtype, "max_abs_err": err, "tol": tol,
+                "lse_err": lse_err, "lse_tol": lse_tol,
+                "ok": err <= tol and lse_err <= lse_tol}
+        cases.append(case)
+        check(case["ok"], f"flash kernel disagrees with plain: {case}")
+        worst[dtype] = max(worst.get(dtype, 0.0), err)
+    return cases, worst
+
+
 # ---------------------------------------------------------------------------
-# phases 4 and 5: runs through api.run
+# phases 5 and 7: runs through api.run
 # ---------------------------------------------------------------------------
 def reduced_cpu_vs_card(device):
     import torch
@@ -235,14 +303,206 @@ def main_path(device, events):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: where the time of a run goes
+# phases 6 and 8: LM serving
 # ---------------------------------------------------------------------------
+def _off_zero(tree, gen):
+    """Norm scales and QKV biases moved off zero (in place), so the
+    (1+scale) norms and the bias adds are exercised."""
+    import torch
+
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            _off_zero(leaf, gen)
+        elif isinstance(leaf, list):
+            for item in leaf:
+                _off_zero(item, gen)
+        elif name in ("scale", "bq", "bk", "bv"):
+            leaf.add_(0.1 * torch.randn(leaf.shape, generator=gen,
+                                        dtype=leaf.dtype))
+
+
+def reduced_serve_cpu_vs_card(device, steps=8):
+    """Reduced qwen2-0.5b with the same port parameters: prefill through
+    the flash path and ``steps`` greedy decode steps on the CPU (plain
+    version) and on the card (kernel).  Logits and caches ≤1e-5·(1+max),
+    slot positions and tokens equal, one launch per layer on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import transformer as tmod
+
+    cfg = get_config("qwen2-0.5b").reduced()
+    p_cpu = tmod.init_params(cfg, torch.Generator().manual_seed(0))
+    _off_zero(p_cpu, torch.Generator().manual_seed(1))
+    B, S = 2, 40
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S)))
+    runs = []
+    for dev in (torch.device("cpu"), device):
+        params = tmod.tree_map(lambda t: t.to(dev), p_cpu)
+        cache = tmod.init_cache(cfg, B, S + steps, dtype=torch.float32,
+                                device=dev)
+        before = fa.flash_attention_fwd.launches
+        logits, cache = tmod.prefill(params, cfg, {"tokens": tokens.to(dev)},
+                                     cache, attn_impl="pallas")
+        launches = fa.flash_attention_fwd.launches - before
+        outs, toks = [logits.cpu()], []
+        for step in range(steps):
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            toks.append(tok.cpu())
+            logits, cache = tmod.decode_step(params, cfg, tok, cache,
+                                             S + step)
+            outs.append(logits.cpu())
+        runs.append((outs, toks, tmod.tree_map(lambda t: t.cpu(), cache),
+                     launches))
+    (c_out, c_tok, c_cache, c_n), (g_out, g_tok, g_cache, g_n) = runs
+    logit_err = max(float((g - c).abs().max() / (1 + c.abs().max()))
+                    for g, c in zip(g_out, c_out))
+    cache_err = 0.0
+    for gl, cl in zip(g_cache["dec"]["layers"], c_cache["dec"]["layers"]):
+        check(torch.equal(gl["slot_pos"], cl["slot_pos"]),
+              "reduced serve: slot positions differ")
+        for name in ("k", "v"):
+            cache_err = max(cache_err, float(
+                (gl[name] - cl[name]).abs().max() / (1 + cl[name].abs().max())))
+    fields = {"steps": steps, "logit_rel_err": logit_err,
+              "cache_rel_err": cache_err, "tol": 1e-5,
+              "tokens_equal": all(torch.equal(a, b)
+                                  for a, b in zip(g_tok, c_tok)),
+              "card_launches": g_n, "cpu_launches": c_n}
+    check(logit_err <= 1e-5 and cache_err <= 1e-5,
+          f"reduced serve CPU vs card: {fields}")
+    check(fields["tokens_equal"], f"reduced serve tokens differ: {fields}")
+    check(c_n == 0 and g_n == cfg.num_layers,
+          f"reduced serve launches: {fields}")
+    return fields
+
+
+def serve_main_path(device):
+    """The serving main path at qwen2-0.5b's full width, f32 parameters
+    from the port's own seeded init: prefill (flash kernel) of
+    SERVE_B × SERVE_S tokens, SERVE_STEPS greedy decode steps, and the
+    batched server over 8 requests on 4 slots.  The flash launch count is
+    set to 0 just before and read just after.  Then, outside the count,
+    the same prefill through the naive path: last-position logits within
+    1e-4·(1+max) and equal argmax."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.models import transformer as tmod
+
+    cfg = get_config("qwen2-0.5b")
+    t0 = time.perf_counter()
+    params = tmod.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0))
+    n_params = tmod.num_params(params)
+    check(n_params == cfg.param_count == 494_032_768,
+          f"qwen2-0.5b has {n_params} parameters")
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_S))).to(device)
+    queue = [Request(i, rng.integers(0, cfg.vocab_size, 64)
+                     .astype(np.int32), 16) for i in range(8)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+
+    fa.flash_attention_fwd.launches = 0           # read after the path
+    cache = tmod.init_cache(cfg, SERVE_B, SERVE_S + SERVE_STEPS,
+                            dtype=torch.float32, device=device)
+    t0 = time.perf_counter()
+    logits, cache = tmod.prefill(params, cfg, {"tokens": prompts}, cache,
+                                 attn_impl="pallas")
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = fa.flash_attention_fwd.launches
+    pallas_last = logits
+    t0 = time.perf_counter()
+    for step in range(SERVE_STEPS):
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        logits, cache = tmod.decode_step(params, cfg, tok, cache,
+                                         SERVE_S + step)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    check(logits.shape == (SERVE_B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "decode logits are not finite or not (B, 1, V)")
+    server = BatchedServer(cfg, params, slots=4, max_len=64 + 16 + 4)
+    t0 = time.perf_counter()
+    done = server.run(list(queue))
+    torch.cuda.synchronize()
+    server_s = time.perf_counter() - t0
+    launches = fa.flash_attention_fwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(sorted(r.rid for r in done) == list(range(8))
+          and all(r.done and len(r.generated) == 16 for r in done),
+          "the batched server did not finish every request")
+
+    naive, _ = tmod.prefill(params, cfg, {"tokens": prompts},
+                            tmod.init_cache(cfg, SERVE_B, SERVE_S,
+                                            dtype=torch.float32,
+                                            device=device),
+                            attn_impl="naive")
+    err = float((pallas_last - naive).abs().max())
+    tol = 1e-4 * (1.0 + float(naive.abs().max()))
+    same = torch.equal(torch.argmax(pallas_last[:, -1], -1),
+                       torch.argmax(naive[:, -1], -1))
+    rec = {"arch": cfg.arch_id, "params": n_params, "setup_s": setup_s,
+           "batch": SERVE_B, "prompt": SERVE_S, "decode_steps": SERVE_STEPS,
+           "prefill_s": prefill_s,
+           "prefill_tokens_per_s": SERVE_B * SERVE_S / prefill_s,
+           "decode_s": decode_s,
+           "decode_tokens_per_s": SERVE_B * SERVE_STEPS / decode_s,
+           "server_requests": len(done), "server_s": server_s,
+           "server_tokens_per_s": sum(len(r.generated) for r in done)
+           / server_s,
+           "max_memory_allocated": peak,
+           "prefill_launches": prefill_launches, "launches": launches,
+           "pallas_vs_naive_max_abs": err, "tol": tol,
+           "argmax_equal": same}
+    check(prefill_launches == cfg.num_layers and launches == cfg.num_layers,
+          f"flash launches: {rec}")
+    check(err <= tol and same,
+          f"pallas vs naive prefill: {rec}")
+    return rec, (cfg, params, prompts)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: where the time of a run goes
+# ---------------------------------------------------------------------------
+def device_spans(prof):
+    """Device kernel spans of a trace, the device's busy time (union of
+    the spans, µs) and {name: (device µs, count)}."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    check(spans, "the profiler saw no device activity")
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for start, stop, name in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        t, k = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + stop - start, k + 1)
+    return spans, busy, by_name
+
+
+def top_kernels(by_name, n=8):
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return [{"name": k[:80], "device_us": v[0], "count": v[1]}
+            for k, v in top]
+
+
 def profile_run(task, fleet, plane, p0, events):
     """Device busy share and device time by kernel over a short CSMAAFL
     run at full width (no eval), from a torch.profiler trace: the fleet's
     initial training plus ``events`` events."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import api
@@ -258,18 +518,9 @@ def profile_run(task, fleet, plane, p0, events):
                       params0=p0)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    check(spans, "the profiler saw no device activity")
-    busy, end, by_name = 0.0, float("-inf"), {}
-    for start, stop, name in spans:
-        busy += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-        t, k = by_name.get(name, (0.0, 0))
-        by_name[name] = (t + stop - start, k + 1)
+    spans, busy, by_name = device_spans(prof)
     steps = task.local_batches * (sum(c.local_steps for c in fleet)
                                   + sum(e.local_steps for e in res.events))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     agg = [v for k, v in by_name.items() if "weighted_agg" in k]
     return {"events": events, "sgd_steps": steps, "wall_s": wall_us / 1e6,
             "ms_per_sgd_step": wall_us / 1e3 / steps,
@@ -277,12 +528,53 @@ def profile_run(task, fleet, plane, p0, events):
             "device_kernels": len(spans),
             "kernels_per_sgd_step": len(spans) / steps,
             "weighted_agg_device_us": sum(v[0] for v in agg),
-            "top_kernels": [{"name": k[:80], "device_us": v[0], "count": v[1]}
-                            for k, v in top]}
+            "top_kernels": top_kernels(by_name)}
+
+
+def profile_serve(state, decode_steps=8):
+    """Device busy share and device time by kernel over one full-width
+    prefill (flash kernel) of the serving batch, and over
+    ``decode_steps`` decode steps after it, from two torch.profiler
+    traces."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as tmod
+
+    cfg, params, prompts = state
+    B, S = prompts.shape
+    cache = tmod.init_cache(cfg, B, S + decode_steps, dtype=torch.float32,
+                            device=prompts.device)
+    out = {}
+    torch.cuda.synchronize()
+    for part in ("prefill", "decode"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if part == "prefill":
+                logits, cache = tmod.prefill(params, cfg,
+                                             {"tokens": prompts}, cache,
+                                             attn_impl="pallas")
+            else:
+                for step in range(decode_steps):
+                    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+                    logits, cache = tmod.decode_step(params, cfg, tok,
+                                                     cache, S + step)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans, busy, by_name = device_spans(prof)
+        flash = [v for k, v in by_name.items() if "flash_fwd" in k]
+        out[part] = {"wall_ms": wall_us / 1e3,
+                     "device_busy_share": busy / wall_us,
+                     "device_kernels": len(spans),
+                     "flash_device_us": sum(v[0] for v in flash),
+                     "flash_launches": sum(v[1] for v in flash),
+                     "top_kernels": top_kernels(by_name)}
+    out["decode_steps"] = decode_steps
+    return out
 
 
 # ---------------------------------------------------------------------------
-# phase 6: timing
+# phase 9: timing
 # ---------------------------------------------------------------------------
 def time_graph(fn, sets, launches, replays=10):
     """Median time of one call of ``fn``, from CUDA events around
@@ -370,6 +662,57 @@ def kernel_timing(device):
     return results
 
 
+def flash_bound(B, H, Hkv, S, D, itemsize=4):
+    """Least time for causal attention on the card: q, k, v read once,
+    out and the f32 lse written once, at 3.35 TB/s; against the causal
+    products' flops, 2·2·B·H·D·S(S+1)/2 (QKᵀ and PV over the keys each row
+    attends to), at the f32 rate outside the tensor cores (67 TFLOP/s),
+    which is the rate the kernel computes at."""
+    moved = (2 * B * H * S * D + 2 * B * Hkv * S * D) * itemsize \
+        + B * H * S * 4
+    flops = 2 * B * H * D * S * (S + 1)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", moved, flops)
+
+
+def flash_timing(device, nsets=4, launches=20):
+    """The flash kernel at the serving main path's shape (qwen2-0.5b
+    prefill: B=4, S=512, 14 heads over 2 kv heads, D=64, f32, causal, in
+    the model's (B, S, H, D) layout), its plain version, and
+    ``F.scaled_dot_product_attention`` on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    B, H, Hkv, S, D = SERVE_B, 14, 2, SERVE_S, 64
+    gen = torch.Generator(device=device).manual_seed(3)
+    sets = [tuple(torch.randn(B, S, h, D, generator=gen, device=device)
+                  .transpose(1, 2) for h in (H, Hkv, Hkv))
+            for _ in range(nsets)]
+    fns = {
+        "ms": lambda s: flash_attention_fwd(*s, causal=True),
+        "plain_ms": lambda s: attention_ref(*s, causal=True),
+        "library_ms": lambda s: F.scaled_dot_product_attention(
+            *s, is_causal=True, enable_gqa=True),
+    }
+    rec = {name: time_graph(fn, sets, launches) for name, fn in fns.items()}
+    b, by, moved, flops = flash_bound(B, H, Hkv, S, D)
+    rec.update({"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D,
+                "bound_ms": b, "bound_by": by, "bytes": moved,
+                "flops": flops, "input_sets": nsets,
+                "launches_per_graph": launches,
+                "achieved_TFLOPs": flops / (rec["ms"] * 1e-3) / 1e12,
+                "library_achieved_TFLOPs":
+                    flops / (rec["library_ms"] * 1e-3) / 1e12})
+    emit("timing", kernel="flash_attention_fwd", **rec)
+    return rec
+
+
 def main():
     import torch
 
@@ -389,23 +732,31 @@ def main():
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: {"seconds": v["seconds"], "cached": v["cached"],
                         "ptxas": [ln.strip() for ln in v["log"].splitlines()
-                                  if "registers" in ln or "spill" in ln]}
+                                  if "entry function" in ln
+                                  or "registers" in ln or "spill" in ln]}
                     for k, v in built.items()})
 
     cases, worst = kernel_vs_plain(device)
     emit("kernel", cases=len(cases), all_ok=all(c["ok"] for c in cases),
          max_abs_err={f"C={c}/{d}": e for (c, d), e in worst.items()},
          vector_cases=sum(c["vector"] for c in cases))
+    flash_cases, flash_worst = flash_vs_plain(device)
+    emit("flash", cases=flash_cases, max_abs_err=flash_worst)
 
     emit("reduced", **reduced_cpu_vs_card(device))
+    emit("reduced_serve", **reduced_serve_cpu_vs_card(device))
 
     events = 200
     main_runs, setup_s, total_launches, state = main_path(device, events)
     emit("main_total", setup_s=setup_s, launches=total_launches)
+    serve, serve_state = serve_main_path(device)
+    emit("serve", **serve)
 
     timing = kernel_timing(device)
+    flash_t = flash_timing(device)
 
     emit("profile", **profile_run(*state, events=20))
+    emit("profile_serve", **profile_serve(serve_state))
 
     def entry(C, name, launches):
         t = timing[C]
@@ -421,9 +772,16 @@ def main():
               + main_runs["afl_baseline"]["launches"]),
         entry(100, "weighted_agg (C=M=100, eq. 2 FedAvg round)",
               main_runs["fedavg"]["launches"]),
+        {"name": "flash_attention_fwd (qwen2-0.5b prefill, f32, causal)",
+         "route": "cuda", "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+         "launches": serve["launches"],
+         "max_abs_err": flash_worst["float32"], "ms": flash_t["ms"],
+         "plain_ms": flash_t["plain_ms"], "bound_ms": flash_t["bound_ms"],
+         "bound_by": flash_t["bound_by"],
+         "library_ms": flash_t["library_ms"]},
     ]
     check(all(k["launches"] > 0 for k in kernels),
-          "a kernel of the main path was never launched")
+          "a kernel of a main path was never launched")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -24,6 +24,8 @@ BUILD_DIR = _HERE.parents[2] / "build" / "kernels"
 # name -> CUDA source; one nvcc process per source
 SOURCES: Dict[str, Path] = {
     "weighted_agg": _HERE / "weighted_agg" / "csrc" / "weighted_agg.cu",
+    "flash_attention": (_HERE / "flash_attention" / "csrc"
+                        / "flash_attention.cu"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,5 +1,5 @@
-"""The port on the card: the CUDA kernel against its plain version, the
-engine, and the slice's CPU-vs-card parity.
+"""The port on the card: the CUDA kernels against their plain versions,
+the engine, and the slices' CPU-vs-card parity.
 
 This file imports neither jax nor ``repro``, so it also runs where only
 PyTorch is installed:
@@ -9,7 +9,9 @@ PyTorch is installed:
 Every test here needs a CUDA card and nvcc; it decides so in a fixture
 and skips without them.  Tolerances: f32 1e-6·(1+max|ref|) (summation
 order and FMA only), bf16 one bf16 ulp on top of that; runs ≤1e-5 on
-the parameters.
+the parameters.  Flash attention: the reference's FA bounds, f32
+2e-5·(1+max|ref|) and bf16 2e-2, the f32 log-sum-exp 2e-5·(1+max|lse|);
+reduced qwen2-0.5b prefill + decode CPU vs card ≤1e-5·(1+max|ref|).
 """
 import numpy as np
 import pytest
@@ -20,9 +22,15 @@ from repro_torch.configs.paper_cnn import CNNConfig
 from repro_torch.core.agg_engine import AggEngine
 from repro_torch.core.scheduler import make_fleet
 from repro_torch.core.tasks import CNNTask
+from repro_torch.configs.base import get_config
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.weighted_agg import weighted_agg as wa
 from repro_torch.kernels.weighted_agg.ref import weighted_agg_ref
 from repro_torch.models import cnn
+from repro_torch.models import transformer as tmod
 
 
 @pytest.fixture
@@ -150,3 +158,118 @@ def test_slice_on_card_matches_cpu(cuda, algorithm, iterations):
     eng = AggEngine(p0)
     diff = (eng.flatten(card_p).cpu() - eng.flatten(cpu_p)).abs().max()
     assert float(diff) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+FLASH_CASES = [
+    # B, H, Hkv, S, D, window, cap, dtype: the reference's FA_CASES, then
+    # qwen2-0.5b's attention at S = 512 and a ragged 200, and head_dim 256
+    (2, 4, 4, 128, 64, 0, 0.0, "float32"),
+    (1, 8, 2, 256, 64, 0, 0.0, "float32"),
+    (2, 4, 2, 200, 32, 64, 0.0, "float32"),
+    (1, 4, 4, 128, 64, 0, 50.0, "float32"),
+    (1, 2, 1, 512, 128, 128, 0.0, "float32"),
+    (1, 4, 2, 256, 64, 0, 0.0, "bfloat16"),
+    (1, 3, 1, 96, 16, 32, 30.0, "float32"),
+    (4, 14, 2, 512, 64, 0, 0.0, "float32"),
+    (4, 14, 2, 200, 64, 0, 0.0, "float32"),
+    (4, 14, 2, 512, 64, 0, 0.0, "bfloat16"),
+    (4, 14, 2, 200, 64, 0, 0.0, "bfloat16"),
+    (1, 2, 2, 300, 256, 0, 0.0, "float32"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "B,H,Hkv,S,D,win,cap,dtype,causal",
+    [c + (True,) for c in FLASH_CASES]
+    # full (non-causal) attention where no window is set
+    + [c + (False,) for c in FLASH_CASES if not c[5]])
+def test_flash_kernel_matches_plain(cuda, B, H, Hkv, S, D, win, cap, dtype,
+                                    causal):
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(S * D + H)
+    q, k, v = (torch.randn(B, S, h, D, generator=gen, device=cuda).to(tdt)
+               for h in (H, Hkv, Hkv))
+    before = fa.flash_attention_fwd.launches
+    out = flash_attention(q, k, v, causal=causal, window=win,
+                          logit_cap=cap)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    out2, lse = fa.flash_attention_fwd(qt, kt, vt, causal=causal,
+                                       window=win, logit_cap=cap,
+                                       return_lse=True)
+    ref, ref_lse = attention_ref(qt, kt, vt, causal=causal, window=win,
+                                 logit_cap=cap, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == before + 2
+    assert out.shape == q.shape and out.dtype == tdt and out.is_contiguous()
+    tol = 2e-2 if dtype == "bfloat16" else \
+        2e-5 * (1 + float(ref.float().abs().max()))
+    for o in (out.transpose(1, 2), out2):
+        assert float((o.float() - ref.float()).abs().max()) <= tol
+    assert float((lse - ref_lse).abs().max()) <= \
+        2e-5 * (1 + float(ref_lse.abs().max()))
+
+
+@pytest.mark.gpu
+def test_flash_raises_when_library_fails_to_load(cuda, monkeypatch):
+    """No fall-back: a CUDA call whose library cannot load raises, and
+    nothing is counted."""
+    q = torch.randn(1, 64, 2, 64, device=cuda)
+
+    def broken(name):
+        raise OSError(f"cannot load {name}")
+
+    fa._launch_fn.cache_clear()
+    monkeypatch.setattr(_build, "library", broken)
+    before = fa.flash_attention_fwd.launches
+    try:
+        with pytest.raises(OSError, match="flash_attention"):
+            flash_attention(q, q, q)
+    finally:
+        fa._launch_fn.cache_clear()
+    assert fa.flash_attention_fwd.launches == before
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q[..., :48], q[..., :48], q[..., :48])
+
+
+@pytest.mark.gpu
+def test_prefill_on_card_launches_and_matches_cpu(cuda):
+    """Reduced qwen2-0.5b: the card's flash prefill launches the kernel
+    once per layer (the naive one never), and prefill + 8 decode steps
+    match the CPU run ≤1e-5·(1+max), tokens equal."""
+    cfg = get_config("qwen2-0.5b").reduced()
+    p_cpu = tmod.init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)))
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        params = tmod.tree_map(lambda t: t.to(dev), p_cpu)
+        cache = tmod.init_cache(cfg, 2, 48, dtype=torch.float32, device=dev)
+        before = fa.flash_attention_fwd.launches
+        logits, cache = tmod.prefill(params, cfg, {"tokens": tokens.to(dev)},
+                                     cache, attn_impl="pallas")
+        launches = fa.flash_attention_fwd.launches - before
+        outs = [logits.cpu()]
+        for step in range(8):
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            logits, cache = tmod.decode_step(params, cfg, tok, cache,
+                                             40 + step)
+            outs.append(logits.cpu())
+        runs.append((outs, tmod.caches_to_numpy(cache, cfg), launches))
+    (c_out, c_cache, c_n), (g_out, g_cache, g_n) = runs
+    assert c_n == 0 and g_n == cfg.num_layers
+    for g, c in zip(g_out, c_out):
+        assert float((g - c).abs().max()) <= 1e-5 * (1 + float(c.abs().max()))
+        assert torch.equal(g.argmax(-1), c.argmax(-1))
+    for gl, cl in zip(g_cache["dec"]["rem"], c_cache["dec"]["rem"]):
+        assert np.array_equal(gl["slot_pos"], cl["slot_pos"])
+        for name in ("k", "v"):
+            assert np.abs(gl[name] - cl[name]).max() <= \
+                1e-5 * (1 + np.abs(cl[name]).max())
+    before = fa.flash_attention_fwd.launches
+    tmod.prefill(tmod.tree_map(lambda t: t.to(cuda), p_cpu), cfg,
+                 {"tokens": tokens.to(cuda)}, attn_impl="naive")
+    assert fa.flash_attention_fwd.launches == before

@@ -137,7 +137,8 @@ def main(argv=None, *, device: DeviceLike = None) -> List[Request]:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    params = tmod.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    params = tmod.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
     rng = np.random.default_rng(0)
     queue = [Request(rid=i,
                      prompt=rng.integers(0, cfg.vocab_size,

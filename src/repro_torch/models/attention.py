@@ -175,40 +175,38 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, window: int,
 
 def fill_kv_cache(cache: Params, k: torch.Tensor, v: torch.Tensor,
                   start_pos: int = 0) -> Params:
-    """Write a prefill's k/v (B,S,Hkv,D) into the cache (ring-aware)."""
+    """Write a prefill's k/v (B,S,Hkv,D) into the cache (ring-aware).
+
+    The cache is written in place and returned: the reference's
+    functional update without a copy of the whole cache."""
     L = cache["k"].shape[1]
     S = k.shape[1]
     pos = start_pos + torch.arange(S, device=k.device)
     if S >= L:
         # keep the last L entries, rotated so slot = pos mod L
-        k_tail, v_tail, p_tail = k[:, -L:], v[:, -L:], pos[-L:]
-        order = torch.argsort(p_tail % L)
-        return {"k": k_tail[:, order].to(cache["k"].dtype),
-                "v": v_tail[:, order].to(cache["v"].dtype),
-                "slot_pos": p_tail[order].to(torch.int32)}
+        k, v, pos = k[:, -L:], v[:, -L:], pos[-L:]
     slots = pos % L
-    ck, cv, sp = (cache[n].clone() for n in ("k", "v", "slot_pos"))
-    ck[:, slots] = k.to(ck.dtype)
-    cv[:, slots] = v.to(cv.dtype)
-    sp[slots] = pos.to(torch.int32)
-    return {"k": ck, "v": cv, "slot_pos": sp}
+    cache["k"][:, slots] = k.to(cache["k"].dtype)
+    cache["v"][:, slots] = v.to(cache["v"].dtype)
+    cache["slot_pos"][slots] = pos.to(torch.int32)
+    return cache
 
 
 def decode_attention(params: Params, x: torch.Tensor, cache: Params,
                      cfg: ModelConfig, *, pos: int, window: int
                      ) -> Tuple[torch.Tensor, Params]:
     """One-token decode.  x: (B, 1, d); pos: the current absolute
-    position.  Returns (out (B,1,d), new_cache)."""
+    position.  Returns (out (B,1,d), cache): the new slot is written into
+    ``cache`` in place, as ``fill_kv_cache`` writes."""
     pos = int(pos)
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(params, x, cfg, positions)
     L = cache["k"].shape[1]
     slot = pos % L
-    ck, cv, sp = (cache[n].clone() for n in ("k", "v", "slot_pos"))
+    ck, cv, sp = cache["k"], cache["v"], cache["slot_pos"]
     ck[:, slot] = k_new[:, 0].to(ck.dtype)
     cv[:, slot] = v_new[:, 0].to(cv.dtype)
     sp[slot] = pos
-    new_cache = {"k": ck, "v": cv, "slot_pos": sp}
 
     kr = _repeat_kv(ck, cfg.num_heads)          # (B, L, H, D)
     vr = _repeat_kv(cv, cfg.num_heads)
@@ -221,4 +219,4 @@ def decode_attention(params: Params, x: torch.Tensor, cache: Params,
     logits = logits.masked_fill(~valid, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     ctx = torch.einsum("bhqk,bkhd->bqhd", w, vr.float())
-    return _out_proj(ctx.to(x.dtype), params["wo"]), new_cache
+    return _out_proj(ctx.to(x.dtype), params["wo"]), cache

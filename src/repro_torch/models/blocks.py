@@ -143,24 +143,24 @@ def stack_init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def stack_decode(params: Params, x: torch.Tensor, cache: Params,
                  cfg: ModelConfig, *, pos: int
                  ) -> Tuple[torch.Tensor, Params]:
-    new = []
+    """One decode step through every layer; the caches are written in
+    place and ``cache`` is returned."""
     for p, c, kind in zip(params["layers"], cache["layers"], cfg.blocks):
-        x, nc = block_decode(p, x, c, kind, cfg, pos=pos)
-        new.append(nc)
-    return x, {"layers": new}
+        x, _ = block_decode(p, x, c, kind, cfg, pos=pos)
+    return x, cache
 
 
 def stack_prefill(params: Params, x: torch.Tensor, cfg: ModelConfig,
                   cache: Params, *, attn_impl: str = "auto"
                   ) -> Tuple[torch.Tensor, Params]:
-    """Full-sequence forward that also fills the KV caches (prefill)."""
+    """Full-sequence forward that also fills the KV caches (prefill), in
+    place; ``cache`` is returned."""
     positions = torch.arange(x.shape[1], device=x.device)
-    new = []
     for p, c, kind in zip(params["layers"], cache["layers"], cfg.blocks):
         hn = rmsnorm(p["norm1"], x, cfg.norm_eps)
         out, (k_new, v_new) = attn.attention_forward(
             p["attn"], hn, cfg, window=_block_window(kind, cfg),
             positions=positions, impl=attn_impl, kv_cache_out=True)
         x = _ffn(p, x, out, cfg)
-        new.append(attn.fill_kv_cache(c, k_new, v_new))
-    return x, {"layers": new}
+        attn.fill_kv_cache(c, k_new, v_new)
+    return x, cache

@@ -2,19 +2,19 @@
 ``repro/models/transformer.py`` for the DENSE family.
 
 Public API:
-  init_params(cfg, gen)                       -> params
+  init_params(cfg, gen, device=None)          -> params
   forward(params, cfg, batch)                 -> (logits, aux_loss)
   init_cache(cfg, batch, max_len)             -> cache
   prefill(params, cfg, batch, cache)          -> (logits_last, cache)
-  decode_step(params, cfg, token, cache, pos) -> (logits, new_cache)
+  decode_step(params, cfg, token, cache, pos) -> (logits, cache)
   params_from_jax / caches_from_jax / caches_to_numpy
 
 ``batch`` is a dict with ``"tokens"`` (B, S).  Parameters follow the
 reference's names and shapes, except that the stack holds one dict per
 layer (``params["stack"]["layers"]``); ``params_from_jax`` unstacks the
-reference's scanned periods.  Parameters live where ``init_params``'s
-generator lives; prefill and decode run where the parameters are, under
-``torch.inference_mode()``.  The encoder-decoder and VLM families raise
+reference's scanned periods.  Parameters live on the card unless
+``init_params`` is given ``device="cpu"``; prefill and decode run where
+the parameters are, under ``torch.inference_mode()``.  The encoder-decoder and VLM families raise
 until their slice (ROADMAP Queue 1 #13e).
 """
 from __future__ import annotations
@@ -46,10 +46,12 @@ def _check_family(cfg: ModelConfig) -> None:
 # Init
 # ---------------------------------------------------------------------------
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
-                dtype=None) -> Params:
-    """Random parameters on ``gen``'s device (f32 unless ``dtype``).
+                dtype=None, device: DeviceLike = None) -> Params:
+    """Random parameters (f32 unless ``dtype``), drawn on ``gen``'s
+    device and placed on the card unless ``device`` says otherwise.
     Full-f32 matmuls, as the reference computes them: TF32 off."""
     _check_family(cfg)
+    dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dtype = dtype or torch.float32
@@ -61,7 +63,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     if not cfg.tie_embeddings:
         p["lm_head"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
                                   dtype=dtype)
-    return p
+    return tree_map(lambda t: t.to(dev), p)
 
 
 # ---------------------------------------------------------------------------
@@ -106,25 +108,25 @@ def prefill(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
     x = _embed_inputs(params, cfg, batch)
     if cache is None:
         cache = init_cache(cfg, x.shape[0], x.shape[1], device=x.device)
-    h, dec = blk.stack_prefill(params["stack"], x, cfg, cache["dec"],
-                               attn_impl=attn_impl)
+    h, _ = blk.stack_prefill(params["stack"], x, cfg, cache["dec"],
+                             attn_impl=attn_impl)
     h = rmsnorm(params["final_norm"], h[:, -1:, :], cfg.norm_eps)
     logits = unembed(h, _lm_head_table(params, cfg), cfg.final_logit_softcap)
-    return logits, {"dec": dec}
+    return logits, cache
 
 
 @torch.inference_mode()
 def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
                 cache: Params, pos: int):
     """token (B, 1) int; pos the absolute position of ``token``.
-    Returns (logits (B,1,V), new_cache)."""
+    Returns (logits (B,1,V), cache), the cache written in place."""
     _check_family(cfg)
     x = embed_lookup(params["embed"], token,
                      scale_by_sqrt_dim=cfg.tie_embeddings)
-    h, dec = blk.stack_decode(params["stack"], x, cache["dec"], cfg, pos=pos)
+    h, _ = blk.stack_decode(params["stack"], x, cache["dec"], cfg, pos=pos)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     logits = unembed(h, _lm_head_table(params, cfg), cfg.final_logit_softcap)
-    return logits, {"dec": dec}
+    return logits, cache
 
 
 def num_params(params: Any) -> int:

@@ -275,7 +275,8 @@ def test_caches_round_trip_stacked():
 
 def test_init_params_has_reference_layout():
     jcfg, tcfg, np_params = _model("qwen2-0.5b")
-    ours = t_tm.init_params(tcfg, torch.Generator().manual_seed(0))
+    ours = t_tm.init_params(tcfg, torch.Generator().manual_seed(0),
+                            device="cpu")
     conv = t_tm.params_from_jax(np_params, tcfg, "cpu")
     shapes = lambda t: jax.tree.map(lambda x: (tuple(x.shape), x.dtype), t)
     assert shapes(ours) == shapes(conv)
@@ -295,7 +296,8 @@ def test_init_params_has_reference_layout():
 def test_unported_families_raise(arch, item):
     tcfg = port_config(j_get_config(arch).reduced())
     with pytest.raises(NotImplementedError, match=item):
-        t_tm.init_params(tcfg, torch.Generator().manual_seed(0))
+        t_tm.init_params(tcfg, torch.Generator().manual_seed(0),
+                         device="cpu")
 
 
 @pytest.mark.parametrize("impl,S", [("blockwise", 8), ("auto", 2049)])
@@ -312,3 +314,6 @@ def test_entry_points_need_the_card_unless_cpu():
     tcfg = t_base.get_config("qwen2-0.5b").reduced()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         t_tm.init_cache(tcfg, 1, 8)
+    # a CPU generator does not put the parameters on the CPU
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_tm.init_params(tcfg, torch.Generator().manual_seed(0))

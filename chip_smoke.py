@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py
 
-Two main paths: federated learning (CSMAAFL and its baselines on the
-paper's CNN, every server blend through the weighted-aggregation kernel)
-and LM serving (qwen2-0.5b at full width, every prefill attention
-through the flash-attention kernel).  Phases, one JSON line each:
+Three main paths: federated learning (CSMAAFL and its baselines on the
+paper's CNN, every server blend through the weighted-aggregation kernel),
+LM serving (qwen2-0.5b at full width, every prefill attention through the
+flash-attention kernel) and federated LM training (CSMAAFL and FedAvg on
+qwen2-0.5b at full width through the fused step, attention forward and
+backward through the flash kernels, the K=2 blend through the
+weighted-aggregation kernel).  Phases, one JSON line each:
 
 1.  device   — card name and count, ``nvidia-smi`` name and power limit;
 2.  build    — nvcc builds every kernel from the sources in this checkout
@@ -15,20 +18,30 @@ through the flash-attention kernel).  Phases, one JSON line each:
                card, at the main path's shapes and at a ragged one;
 4.  flash    — flash_attention_fwd against its plain version (output and
                log-sum-exp), f32 and bf16, window, softcap, GQA, ragged S;
+4b. flash_bwd — the dQ and dK/dV kernels against the plain backward, two
+               launches bitwise equal, and autograd through
+               ``ops.flash_attention`` against the plain backward;
 5.  reduced  — a narrow-CNN CSMAAFL run on the CPU (plain version) and on
                the card (kernel): final parameters ≤1e-5, times equal;
 6.  reduced_serve — reduced qwen2-0.5b prefill + 8 decode steps on the
                CPU and on the card: logits and caches ≤1e-5, tokens equal;
+6b. reduced_train — reduced qwen2-0.5b fused steps (K=1, grad_accum=2,
+               K=2) on the CPU and on the card: parameters ≤1e-5;
 7.  main     — the AFL main path at the paper CNN's full width, M = 100:
                FedAvg, CSMAAFL and the §III-B baseline through ``api.run``;
 8.  serve    — the serving main path at qwen2-0.5b's full width: prefill
                of 4 × 512 tokens (one flash launch per layer), 32 decode
                steps, ``BatchedServer`` over 8 requests; then the same
                prefill through the naive path for comparison;
+8b. train    — the training main path at qwen2-0.5b's full width,
+               ``run_spmd`` with C = 4 clients × 2 rows × 512 tokens: 8
+               CSMAAFL steps, 2 FedAvg steps, 1 step with K = 2 local
+               steps; then one step through the naive attention;
 9.  timing   — each kernel, its plain version and the one PyTorch call
                computing the same function, timed with CUDA events;
 10. profile  — device busy share and device time by kernel over a short
-               CSMAAFL run and over a full-width prefill + decode.
+               CSMAAFL run, a full-width prefill + decode and a full-width
+               train step.
 
 Each main path's launch counts are set to 0 just before it and read just
 after.  Then the ``{"kernels": [...]}`` line and, last, the
@@ -46,6 +59,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 N_CNN = 1_663_370              # flat parameters of the paper's MNIST CNN
+N_QWEN_EMBED = 151_936 * 896   # qwen2-0.5b's (tied) embedding leaf
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 KERNEL_SOURCE = "src/repro_torch/kernels/weighted_agg/csrc/weighted_agg.cu"
@@ -69,6 +83,31 @@ FLASH_CASES = [
     (4, 14, 2, 200, 64, 0, 0.0, "bfloat16"),
 ]
 SERVE_B, SERVE_S, SERVE_STEPS = 4, 512, 32
+FLASH_BWD_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention_bwd.cu")
+FLASH_DQ_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:325"
+FLASH_DKV_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:355"
+# the training main path: C clients x b rows x S tokens a step
+TRAIN_C, TRAIN_ROWS, TRAIN_S = 4, 2, 512
+TRAIN_B = TRAIN_C * TRAIN_ROWS          # attention batch of a K=1 step
+# B, H, Hkv, S, D, window, softcap, dtype: the reference's backward cases
+# (tests/test_kernels.py), FLASH_CASES' reference part, qwen2-0.5b's heads
+# at S = 128 and ragged 200, and the training shape (B = 8, S = 512) and
+# its ragged S = 200, f32 and bf16
+FLASH_BWD_CASES = [
+    (1, 4, 2, 128, 32, 0, 0.0, "float32"),
+    (1, 4, 2, 160, 32, 48, 0.0, "float32"),
+    (1, 2, 1, 96, 16, 0, 30.0, "float32"),
+    *FLASH_CASES[:7],
+    (1, 14, 2, 128, 64, 0, 0.0, "float32"),
+    (1, 14, 2, 200, 64, 0, 0.0, "float32"),
+    (TRAIN_B, 14, 2, TRAIN_S, 64, 0, 0.0, "float32"),
+    (TRAIN_B, 14, 2, TRAIN_S, 64, 0, 0.0, "bfloat16"),
+    (TRAIN_B, 14, 2, 200, 64, 0, 0.0, "float32"),
+    (TRAIN_B, 14, 2, 200, 64, 0, 0.0, "bfloat16"),
+    (1, 2, 2, 300, 256, 0, 0.0, "float32"),
+    (1, 4, 2, 130, 128, 0, 0.0, "bfloat16"),
+]
 
 
 class SmokeFailure(RuntimeError):
@@ -191,6 +230,74 @@ def flash_vs_plain(device):
         cases.append(case)
         check(case["ok"], f"flash kernel disagrees with plain: {case}")
         worst[dtype] = max(worst.get(dtype, 0.0), err)
+    return cases, worst
+
+
+def _grad_close(out, ref, dtype):
+    """(max |Δ|, ok) under the flash bound: 2e-5·(1+max|ref|), bf16 one
+    bf16 ulp of max(|out|, |ref|) on top, elementwise."""
+    import torch
+
+    diff = (out.float() - ref.float()).abs()
+    tol = 2e-5 * (1.0 + float(ref.float().abs().max()))
+    if dtype == "bfloat16":
+        tol = bf16_ulp(torch.maximum(out.float().abs(),
+                                     ref.float().abs())) + tol
+    return float(diff.max()), bool((diff <= tol).all())
+
+
+def flash_bwd_vs_plain(device):
+    """The dQ and dK/dV kernels (``flash_attention_bwd``) against the plain
+    backward ``attention_bwd_ref`` on the same (q, k, v, out, lse, dout),
+    in the model's (B, S, H, D) layout read through strides; a second
+    launch on the same inputs must give the same bits, and each gradient
+    takes its input's layout.  Then autograd through ``ops.flash_attention``
+    (the forward and both backward kernels behind a
+    ``torch.autograd.Function``) against the same plain backward: the
+    forward kernel is deterministic, so both are fed the same (out, lse)
+    (in bf16 the plain forward's output may differ by one ulp, which δ
+    would carry into every gradient)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    worst, cases = {}, []
+    for B, H, Hkv, S, D, win, cap, dtype in FLASH_BWD_CASES:
+        tdt = getattr(torch, dtype)
+        q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device=device)
+                       .to(tdt) for h in (H, Hkv, Hkv, H))
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        kw = dict(causal=True, window=win, logit_cap=cap)
+        out, lse = flash_attention_fwd(qt, kt, vt, return_lse=True, **kw)
+        got = flash_attention_bwd(qt, kt, vt, out, lse, dot, **kw)
+        again = flash_attention_bwd(qt, kt, vt, out, lse, dot, **kw)
+        ref = attention_bwd_ref(qt, kt, vt, out, lse, dot, **kw)
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        ops.flash_attention(*leaves, **kw).backward(do)
+        torch.cuda.synchronize()
+        case = {"B": B, "H": H, "Hkv": Hkv, "S": S, "D": D, "window": win,
+                "cap": cap, "dtype": dtype,
+                "bitwise_repeat": all(torch.equal(a, b)
+                                      for a, b in zip(got, again)),
+                "layouts": all(g.stride() == x.stride()
+                               for g, x in zip(got, (qt, kt, vt)))}
+        ok = case["bitwise_repeat"] and case["layouts"]
+        for name, g, r, x in zip(("dq", "dk", "dv"), got, ref, leaves):
+            err, good = _grad_close(g, r, dtype)
+            a_err, a_good = _grad_close(x.grad.transpose(1, 2), r, dtype)
+            case[name], case[f"{name}_ok"] = err, good
+            case[f"autograd_{name}"], case[f"autograd_{name}_ok"] = \
+                a_err, a_good
+            ok = ok and good and a_good
+            key = f"{name}/{dtype}"
+            worst[key] = max(worst.get(key, 0.0), err)
+        case["ok"] = ok
+        cases.append(case)
+        check(ok, f"flash backward kernels disagree with plain: {case}")
     return cases, worst
 
 
@@ -479,6 +586,203 @@ def serve_main_path(device):
 
 
 # ---------------------------------------------------------------------------
+# phases 6b and 8b: federated LM training
+# ---------------------------------------------------------------------------
+def _launch_counts():
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.weighted_agg import weighted_agg as wa
+    return {"flash_fwd": fa.flash_attention_fwd.launches,
+            "flash_bwd_dq": fa.flash_attention_bwd.launches_dq,
+            "flash_bwd_dkv": fa.flash_attention_bwd.launches_dkv,
+            "weighted_agg": wa.weighted_agg_flat2d.launches}
+
+
+def _zero_launch_counts():
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.weighted_agg import weighted_agg as wa
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches_dq = 0
+    fa.flash_attention_bwd.launches_dkv = 0
+    wa.weighted_agg_flat2d.launches = 0
+
+
+def _since(before):
+    now = _launch_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def _tree_rel_err(a, b):
+    """max over leaves of max|a−b| / (1+max|b|), b the reference."""
+    from repro_torch.models import transformer as tmod
+    return max(float((x.cpu().float() - y.cpu().float()).abs().max()
+                     / (1.0 + float(y.float().abs().max())))
+               for x, y in zip(tmod._leaves(a), tmod._leaves(b)))
+
+
+def reduced_train_cpu_vs_card(device):
+    """Reduced qwen2-0.5b (2 layers, remat off) through the fused step with
+    ``attn_impl="pallas"``, on the CPU (plain versions) and on the card
+    (kernels), from the same parameters and batches: the K=1 CSMAAFL step,
+    the K=1 step in 2 micro-batches and the K=2 step (per-client local
+    SGD, blended per leaf by weighted_agg).  Parameters ≤1e-5·(1+max) per
+    leaf; on the card one flash forward, dQ and dK/dV launch per layer and
+    gradient, one weighted_agg launch per leaf on the K=2 path, none on
+    the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import FederatedConfig, get_config
+    from repro_torch.core import distributed as dist
+    from repro_torch.models import transformer as tmod
+
+    cfg = get_config("qwen2-0.5b").reduced()
+    p_cpu = tmod.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    _off_zero(p_cpu, torch.Generator().manual_seed(1))
+    n_leaves = len(tmod._leaves(p_cpu))
+    rng = np.random.default_rng(1)
+    cases = {   # name: (C, K, rows, grad_accum, coefs)
+        "k1": (3, 1, 2, 1, [0.2, 0.5, 0.2, 0.1]),
+        "k1_grad_accum2": (2, 1, 4, 2, [0.1, 0.6, 0.3]),
+        "k2": (2, 2, 2, 1, [0.4, 0.3, 0.3]),
+    }
+    out = {}
+    for name, (C, K, rows, M, coefs) in cases.items():
+        batches = {n: rng.integers(0, cfg.vocab_size, (C, K, rows, 40))
+                   .astype(np.int32) for n in ("tokens", "labels")}
+        fed = FederatedConfig(local_steps=K, grad_accum=M)
+        res = []
+        for dev in (torch.device("cpu"), device):
+            step = dist.make_csmaafl_step(cfg, fed, attn_impl="pallas",
+                                          device=dev)
+            before = _launch_counts()
+            new, m = step(tmod.tree_map(lambda t: t.to(dev), p_cpu), batches,
+                          coefs, 1e-2)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            res.append((new, float(m["loss"]), _since(before)))
+        (c_new, c_loss, c_n), (g_new, g_loss, g_n) = res
+        grads = C * K if K > 1 else M
+        want = {"flash_fwd": cfg.num_layers * grads,
+                "flash_bwd_dq": cfg.num_layers * grads,
+                "flash_bwd_dkv": cfg.num_layers * grads,
+                "weighted_agg": n_leaves if K > 1 else 0}
+        rec = {"param_rel_err": _tree_rel_err(g_new, c_new), "tol": 1e-5,
+               "loss_cpu": c_loss, "loss_card": g_loss,
+               "card_launches": g_n, "cpu_launches": c_n}
+        check(rec["param_rel_err"] <= 1e-5
+              and abs(g_loss - c_loss) <= 1e-5 * (1 + abs(c_loss)),
+              f"reduced train {name} CPU vs card: {rec}")
+        check(g_n == want and not any(c_n.values()),
+              f"reduced train {name} launches: {rec}, expected {want}")
+        out[name] = rec
+    return out
+
+
+def train_main_path(device):
+    """The training main path at qwen2-0.5b's full width, f32 parameters
+    from the port's seeded init, ``attn_impl="pallas"``: ``run_spmd`` with
+    C = TRAIN_C clients of TRAIN_ROWS × TRAIN_S tokens a step, 8 CSMAAFL
+    steps, 2 FedAvg steps (``make_sfl_step``) and 1 step with K = 2
+    local steps (per-client SGD, blended by weighted_agg at C = 4).  The
+    launch counts are set to 0 just before and read just after; peak
+    device memory is read per run (the initial parameters stay allocated
+    throughout).  Then, outside the count, one step from the initial
+    parameters on each client stream's first batch through the flash
+    kernels and through the naive attention: loss and parameters
+    ≤1e-5·(1+max)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import FederatedConfig, get_config
+    from repro_torch.core import distributed as dist
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.launch.train import run_spmd
+    from repro_torch.models import transformer as tmod
+
+    cfg = get_config("qwen2-0.5b")
+    t0 = time.perf_counter()
+    p0 = tmod.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    kw = dict(clients=TRAIN_C, batch=TRAIN_ROWS, seq=TRAIN_S,
+              attn_impl="pallas", device=device)
+    _zero_launch_counts()                         # read after the path
+    runs, params = {}, p0
+    peak = 0
+    for name, steps, algorithm, K in (("csmaafl", 8, "csmaafl", 1),
+                                      ("fedavg", 2, "fedavg", 1),
+                                      ("csmaafl_k2", 1, "csmaafl", 2)):
+        before = _launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        run = run_spmd(cfg, steps=steps, algorithm=algorithm,
+                       params=params, local_steps=K, **kw)
+        torch.cuda.synchronize()
+        run_peak = torch.cuda.max_memory_allocated()
+        peak = max(peak, run_peak)
+        params = run.params
+        n = _since(before)
+        later = sorted(run.step_s[1:]) or run.step_s
+        med = later[len(later) // 2]
+        runs[name] = {
+            "steps": steps, "local_steps": K, "losses": run.losses,
+            "coef0": [float(c[0]) for c in run.coefs],
+            "step_s": run.step_s, "median_step_s_after_first": med,
+            "train_tokens_per_s": TRAIN_C * K * TRAIN_ROWS * TRAIN_S / med,
+            "data_s": run.data_s, "launches": n,
+            "max_memory_allocated": run_peak,
+            "launches_per_step": {k: v / steps for k, v in n.items()}}
+        check(all(math.isfinite(x) for x in run.losses),
+              f"train {name}: losses {run.losses}")
+    launches = _launch_counts()
+    check(all(bool(torch.isfinite(t).all()) for t in tmod._leaves(params)),
+          "train: non-finite parameters")
+    L, leaves = cfg.num_layers, len(tmod._leaves(p0))
+    grads = 8 + 2 + TRAIN_C * 2       # gradient computations on the path
+    fwd = 2 if cfg.remat else 1       # remat recomputes each forward
+    want = {"flash_fwd": fwd * L * grads, "flash_bwd_dq": L * grads,
+            "flash_bwd_dkv": L * grads, "weighted_agg": leaves}
+    check(launches == want, f"train launches {launches}, expected {want}")
+    del params, run
+
+    # one step through the flash kernels and through the naive attention,
+    # on each client stream's first batch, FedAvg coefficients
+    draws = [TokenStream(cfg.vocab_size, cid=c, seed=0)
+             .sample_batch(TRAIN_ROWS, TRAIN_S) for c in range(TRAIN_C)]
+    batch = {n: np.stack([d[n] for d in draws])[:, None]
+             for n in ("tokens", "labels")}
+    coefs = np.full(TRAIN_C + 1, 1.0 / TRAIN_C, np.float32)
+    coefs[0] = 0.0
+    fed = FederatedConfig(num_clients=TRAIN_C)
+    out = {}
+    for impl in ("pallas", "naive"):
+        step = dist.make_csmaafl_step(cfg, fed, attn_impl=impl, device=device)
+        out[impl] = step(p0, batch, coefs, fed.lr)
+    torch.cuda.synchronize()
+    (pn, pm), (nn_, nm) = out["pallas"], out["naive"]
+    loss_p, loss_n = float(pm["loss"]), float(nm["loss"])
+    param_err = _tree_rel_err(pn, nn_)
+    grad_diff = max(float((a - b).abs().max())
+                    for a, b in zip(tmod._leaves(pn), tmod._leaves(nn_))) \
+        / fed.lr
+    rec = {"arch": cfg.arch_id, "params": tmod.num_params(p0),
+           "clients": TRAIN_C, "rows": TRAIN_ROWS, "seq": TRAIN_S,
+           "tokens_per_step": TRAIN_C * TRAIN_ROWS * TRAIN_S,
+           "setup_s": setup_s, "runs": runs, "launches": launches,
+           "max_memory_allocated": peak,
+           "pallas_vs_naive": {"loss_pallas": loss_p, "loss_naive": loss_n,
+                               "param_rel_err": param_err, "tol": 1e-5,
+                               "max_grad_diff": grad_diff}}
+    check(abs(loss_p - loss_n) <= 1e-5 * (1 + abs(loss_n))
+          and param_err <= 1e-5, f"train pallas vs naive: {rec}")
+    del pn, nn_, out
+    return rec, (cfg, p0, batch, coefs)
+
+
+# ---------------------------------------------------------------------------
 # phase 10: where the time of a run goes
 # ---------------------------------------------------------------------------
 def device_spans(prof):
@@ -579,6 +883,45 @@ def profile_serve(state, decode_steps=8):
     return out
 
 
+def profile_train(state):
+    """Device busy share and device time by kernel over one full-width
+    fused step (K=1, flash kernels, remat), from a torch.profiler trace;
+    the flash forward's and backward's shares of the device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import FederatedConfig
+    from repro_torch.core import distributed as dist
+
+    cfg, p0, batch, coefs = state
+    fed = FederatedConfig(num_clients=TRAIN_C)
+    step = dist.make_csmaafl_step(cfg, fed, attn_impl="pallas",
+                                  device=p0["embed"].device)
+    step(p0, batch, coefs, fed.lr)                 # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        new, _ = step(p0, batch, coefs, fed.lr)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    del new
+    spans, busy, by_name = device_spans(prof)
+    device_us = sum(v[0] for v in by_name.values())
+
+    def part(tag):
+        hit = [v for k, v in by_name.items() if tag in k]
+        t = sum(v[0] for v in hit)
+        return {"device_us": t, "launches": sum(v[1] for v in hit),
+                "share_of_device_time": t / device_us}
+
+    return {"wall_ms": wall_us / 1e3, "device_busy_share": busy / wall_us,
+            "device_kernels": len(spans), "device_us": device_us,
+            "flash_fwd": part("flash_fwd"),
+            "flash_bwd_dq": part("flash_bwd_dq"),
+            "flash_bwd_dkv": part("flash_bwd_dkv"),
+            "top_kernels": top_kernels(by_name, 10)}
+
+
 # ---------------------------------------------------------------------------
 # phase 9: timing
 # ---------------------------------------------------------------------------
@@ -616,6 +959,29 @@ def time_graph(fn, sets, launches, replays=10):
     return times[len(times) // 2]
 
 
+def time_events(fn, sets, launches, replays=5):
+    """Median time of one call of ``fn`` from CUDA events around
+    ``launches`` eager calls (for a library call that a CUDA graph cannot
+    hold, such as an autograd backward)."""
+    import torch
+
+    for i in range(3):
+        fn(sets[i % len(sets)])
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(launches):
+            fn(sets[i % len(sets)])
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    times.sort()
+    return times[len(times) // 2]
+
+
 def bound(C, n, itemsize=4):
     moved = (C + 2) * n * itemsize + (C + 1) * 4   # inputs once, output once
     flops = (2 * C + 1) * n
@@ -632,11 +998,13 @@ def kernel_timing(device):
     from repro_torch.kernels.weighted_agg.weighted_agg import (
         weighted_agg_flat2d)
 
-    n = N_CNN
-    width = -(-n // 64) * 64                   # the plane's row stride
     gen = torch.Generator(device=device).manual_seed(1)
     results = {}
-    for C, nsets, launches in ((1, 8, 200), (100, 2, 8)):
+    # C=1 and C=M=100 over the CNN's flat row (the AFL path), C=4 over
+    # qwen2-0.5b's largest leaf, the embedding (the K=2 train step)
+    for C, n, nsets, launches in ((1, N_CNN, 8, 200), (100, N_CNN, 2, 8),
+                                  (4, N_QWEN_EMBED, 1, 4)):
+        width = -(-n // 64) * 64               # the plane's row stride
         sets = []
         for _ in range(nsets):
             rows = torch.randn(C, width, generator=gen,
@@ -719,6 +1087,79 @@ def flash_timing(device, nsets=4, launches=20):
     return rec
 
 
+def flash_bwd_bound(which, B, H, Hkv, S, D, itemsize=4):
+    """Least time of one backward kernel on the card: its causal products
+    (dQ: QKᵀ, dO·Vᵀ, dS·K; dK/dV: those two and Pᵀ·dO, dSᵀ·Q), each
+    2·B·H·D·S(S+1)/2 flops, at the f32 rate outside the tensor cores
+    (67 TFLOP/s), against its bytes at 3.35 TB/s: dQ reads q, k, v, dout,
+    lse, δ and writes dq; dK/dV reads the same and writes dk, dv."""
+    products = 3 if which == "dq" else 4
+    flops = products * B * H * D * S * (S + 1)
+    q_like = (3 if which == "dq" else 2) * B * H * S * D
+    kv_like = (2 if which == "dq" else 4) * B * Hkv * S * D
+    moved = (q_like + kv_like) * itemsize + 2 * B * H * S * 4
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", moved, flops)
+
+
+def flash_bwd_timing(device, nsets=3, launches=10):
+    """The dQ and dK/dV kernels at the training main path's shape
+    (B = 8, S = 512, 14 heads over 2 kv heads, D = 64, f32, causal, in
+    the model's (B, S, H, D) layout), each timed alone over a CUDA graph
+    with its inputs (q, k, v, dout, lse, δ) precomputed; the plain
+    backward (dq, dk and dv together); and the backward of
+    ``F.scaled_dot_product_attention(is_causal, enable_gqa)`` on the same
+    inputs, timed eagerly (an autograd backward is not graph-captured)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    B, H, Hkv, S, D = TRAIN_B, 14, 2, TRAIN_S, 64
+    gen = torch.Generator(device=device).manual_seed(5)
+    sets = []
+    for _ in range(nsets):
+        q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device=device)
+                       .transpose(1, 2) for h in (H, Hkv, Hkv, H))
+        out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+        delta = (do * out).sum(-1).contiguous()
+        sets.append((q, k, v, do, lse, delta, out))
+    kernels = {
+        "dq": lambda s: fa.flash_attention_bwd_dq(*s[:6]),
+        "dkv": lambda s: fa.flash_attention_bwd_dkv(*s[:6]),
+    }
+    plain_ms = time_graph(lambda s: attention_bwd_ref(
+        s[0], s[1], s[2], s[6], s[4], s[3]), sets, 3)
+    lib_sets = []
+    for q, k, v, do, *_ in sets:
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                           enable_gqa=True)
+        lib_sets.append((o, leaves, do))
+    library_ms = time_events(lambda s: torch.autograd.grad(
+        s[0], s[1], s[2], retain_graph=True), lib_sets, launches)
+    out = {}
+    for which, fn in kernels.items():
+        b, by, moved, flops = flash_bwd_bound(which, B, H, Hkv, S, D)
+        rec = {"ms": time_graph(fn, sets, launches), "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": b, "bound_by": by,
+               "bytes": moved, "flops": flops, "B": B, "H": H, "Hkv": Hkv,
+               "S": S, "D": D, "input_sets": nsets,
+               "launches_per_graph": launches}
+        rec["achieved_TFLOPs"] = flops / (rec["ms"] * 1e-3) / 1e12
+        emit("timing", kernel=f"flash_attention_bwd_{which}", **rec)
+        out[which] = rec
+    least = 5 * B * H * D * S * (S + 1)       # the pair's least work
+    emit("timing", kernel="flash_attention_bwd (dQ + dK/dV)",
+         ms=out["dq"]["ms"] + out["dkv"]["ms"], library_ms=library_ms,
+         plain_ms=plain_ms, least_work_flops=least,
+         least_work_bound_ms=least / F32_FLOPS_PER_S * 1e3)
+    return out
+
+
 def main():
     import torch
 
@@ -748,21 +1189,29 @@ def main():
          vector_cases=sum(c["vector"] for c in cases))
     flash_cases, flash_worst = flash_vs_plain(device)
     emit("flash", cases=flash_cases, max_abs_err=flash_worst)
+    bwd_cases, bwd_worst = flash_bwd_vs_plain(device)
+    emit("flash_bwd", cases=bwd_cases, max_abs_err=bwd_worst)
 
     emit("reduced", **reduced_cpu_vs_card(device))
     emit("reduced_serve", **reduced_serve_cpu_vs_card(device))
+    emit("reduced_train", **reduced_train_cpu_vs_card(device))
 
     events = 200
     main_runs, setup_s, total_launches, state = main_path(device, events)
     emit("main_total", setup_s=setup_s, launches=total_launches)
     serve, serve_state = serve_main_path(device)
     emit("serve", **serve)
+    emit("profile_serve", **profile_serve(serve_state))
+    del serve_state              # the train path's peak memory is its own
+    train, train_state = train_main_path(device)
+    emit("train", **train)
 
     timing = kernel_timing(device)
     flash_t = flash_timing(device)
+    bwd_t = flash_bwd_timing(device)
 
     emit("profile", **profile_run(*state, events=20))
-    emit("profile_serve", **profile_serve(serve_state))
+    emit("profile_train", **profile_train(train_state))
 
     def entry(C, name, launches):
         t = timing[C]
@@ -778,14 +1227,34 @@ def main():
               + main_runs["afl_baseline"]["launches"]),
         entry(100, "weighted_agg (C=M=100, eq. 2 FedAvg round)",
               main_runs["fedavg"]["launches"]),
-        {"name": "flash_attention_fwd (qwen2-0.5b prefill, f32, causal)",
+        entry(4, "weighted_agg (C=4, per-leaf blend of the K=2 train step; "
+                 "timed on the embedding leaf)",
+              train["launches"]["weighted_agg"]),
+        {"name": "flash_attention_fwd (qwen2-0.5b prefill and train, f32, "
+                 "causal; timed at the prefill shape)",
          "route": "cuda", "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
-         "launches": serve["launches"],
+         "launches": serve["launches"] + train["launches"]["flash_fwd"],
          "max_abs_err": flash_worst["float32"], "ms": flash_t["ms"],
          "plain_ms": flash_t["plain_ms"], "bound_ms": flash_t["bound_ms"],
          "bound_by": flash_t["bound_by"],
          "library_ms": flash_t["library_ms"]},
     ]
+    for which, label, replaces in (
+            ("dq", "dQ", FLASH_DQ_REPLACES),
+            ("dkv", "dK/dV", FLASH_DKV_REPLACES)):
+        t = bwd_t[which]
+        err = max(v for k, v in bwd_worst.items()
+                  if k.endswith("/float32") and k.startswith(
+                      ("dq",) if which == "dq" else ("dk", "dv")))
+        kernels.append({
+            "name": f"flash_attention_bwd {label} (qwen2-0.5b train, f32, "
+                    f"causal)",
+            "route": "cuda", "source": FLASH_BWD_SOURCE,
+            "replaces": replaces,
+            "launches": train["launches"][f"flash_bwd_{which}"],
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of a main path was never launched")
     print(smi, flush=True)

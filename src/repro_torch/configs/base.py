@@ -234,6 +234,39 @@ def count_params(cfg: ModelConfig) -> int:
     return total + cfg.d_model
 
 
+@dataclass(frozen=True)
+class FederatedConfig:
+    """The paper's algorithm knobs (Section III), field for field the
+    reference's.  The mesh (``MeshConfig``) comes with the multi-device
+    planes (ROADMAP Queue 1 #14)."""
+    num_clients: int = 100
+    algorithm: str = "csmaafl"        # "sfl" | "afl_baseline" | "csmaafl" | "afl_alpha"
+    gamma: float = 0.4                # eq. (11) constant
+    mu_momentum: float = 0.9          # moving average for mu_ji
+    local_steps: int = 1              # K local SGD steps per upload
+    lr: float = 0.01                  # eta (paper: 0.01)
+    local_batch_size: int = 5         # paper: 5
+    # heterogeneity simulation: client compute time ~ LogUniform[tau, a*tau]
+    tau: float = 1.0
+    hetero_a: float = 4.0
+    tau_upload: float = 0.2
+    tau_download: float = 0.2
+    # adaptive local iterations for extreme clients (Section III-C policy)
+    adaptive_local_iters: bool = True
+    min_local_steps: int = 1
+    max_local_steps: int = 8
+    seed: int = 0
+    # server optimizer for cluster mode ("sgd" = pure paper; adam = beyond-paper)
+    server_opt: str = "none"
+    # micro-batches per fused step (K=1 path): grads accumulated in f32
+    # per micro-batch
+    grad_accum: int = 1
+    # the reference stores inter-layer carries sequence-sharded over its
+    # 'model' mesh axis; on one device there is no such axis, and the
+    # port accepts the field and does nothing with it
+    seq_parallel_carries: bool = True
+
+
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------

@@ -12,7 +12,9 @@ launch of the CUDA ``weighted_agg`` kernel over it:
   C=K launch; the fleet form hands the kernel the cids and lets it read
   the rows in place;
 * ``weighted_sum_flat`` / ``weighted_sum_rows_flat`` — eq. (2) over C=M
-  clients; the row form reads the fleet buffer itself.
+  clients; the row form reads the fleet buffer itself;
+* ``weighted_sum_leaves`` — the per-leaf twin used by the fused LM step
+  (``core/distributed.py``): one launch per parameter leaf.
 
 Leaf order is the reference's: ``jax.tree.flatten`` sorts dict keys, so
 the CNN row is ``conv1_b, conv1_w, conv2_b, conv2_w, fc1_b, fc1_w, fc2_b,
@@ -40,6 +42,7 @@ from repro_torch._device import to_device
 from repro_torch.core import aggregation as agg
 from repro_torch.kernels.weighted_agg.ref import weighted_agg_ref
 from repro_torch.kernels.weighted_agg.weighted_agg import weighted_agg_flat2d
+from repro_torch.models.transformer import _leaves, tree_map
 
 Params = Dict[str, torch.Tensor]
 
@@ -198,3 +201,30 @@ def engine_for(template: Params, *, mode: str = "kernel") -> AggEngine:
         eng = AggEngine(template, mode=mode)
         _ENGINES[key] = eng
     return eng
+
+
+# ---------------------------------------------------------------------------
+# Per-leaf twin for the fused LM step
+# ---------------------------------------------------------------------------
+def weighted_sum_leaves(coef0, global_tree, coefs, clients_stacked_tree):
+    """w ← c0·w + Σ_c c_c·w_c with a leading client dim on every leaf of
+    ``clients_stacked_tree`` (nested dicts and lists of tensors).
+
+    Used by the fused step (``core/distributed.py``).  The reference keeps
+    separate per-leaf ``tensordot``s so that GSPMD lowers each to a
+    weighted all-reduce; here each leaf is one launch of the
+    weighted-aggregation kernel, global leaf (n,), client leaves (C, n),
+    coefficients [c0, c_1..c_C] in f32 (on a CPU tensor the wrapper takes
+    the plain version).  f32 accumulation, output in the leaf's dtype."""
+    dev = _leaves(global_tree)[0].device
+    c = torch.cat([torch.as_tensor(coef0, dtype=torch.float32,
+                                   device=dev).reshape(1),
+                   torch.as_tensor(coefs, dtype=torch.float32,
+                                   device=dev).reshape(-1)])
+
+    def leaf(g, w):
+        out = weighted_agg_flat2d(g.reshape(-1), w.reshape(w.shape[0], -1),
+                                  c)
+        return out.reshape(g.shape)
+
+    return tree_map(leaf, global_tree, clients_stacked_tree)

@@ -26,6 +26,8 @@ SOURCES: Dict[str, Path] = {
     "weighted_agg": _HERE / "weighted_agg" / "csrc" / "weighted_agg.cu",
     "flash_attention": (_HERE / "flash_attention" / "csrc"
                         / "flash_attention.cu"),
+    "flash_attention_bwd": (_HERE / "flash_attention" / "csrc"
+                            / "flash_attention_bwd.cu"),
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

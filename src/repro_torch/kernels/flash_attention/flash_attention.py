@@ -1,20 +1,25 @@
-"""Flash-attention forward: the CUDA kernel's wrapper.
+"""Flash attention, forward and backward: the CUDA kernels' wrappers.
 
-The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
+The forward kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
 ``flash_attention_fwd`` of ``repro/kernels/flash_attention/flash_attention.py``:
 causal (or full) attention with an online softmax, optional sliding
 window, GQA through the head map ``h*Hkv//H`` and optional logit softcap,
-emitting the per-row log-sum-exp.  It is bound by f32 arithmetic on the
-CUDA cores; the source's header says how the design meets that.
+emitting the per-row log-sum-exp.  The two backward kernels
+(``csrc/flash_attention_bwd.cu``, a library of its own) replace the TPU
+kernel ``flash_attention_bwd``: one computes dQ, the other dK and dV with
+each GQA group summed inside the kernel.  All are bound by f32
+arithmetic on the CUDA cores; the sources' headers say how the designs
+meet that.
 
 q (B,H,Sq,D) and k/v (B,Hkv,Sk,D) may be any strided views whose last
-dimension is contiguous (``ops.flash_attention`` hands it transposed
-views of the model's (B,S,H,D) tensors, with no copy); the output takes
-q's memory layout.  f32 or bf16 storage, f32 arithmetic.
+dimension is contiguous (``ops.flash_attention`` hands them transposed
+views of the model's (B,S,H,D) tensors, with no copy); each output takes
+its input's memory layout.  f32 or bf16 storage, f32 arithmetic.
 
-A CPU tensor takes the plain version (``ref.attention_ref``); a CUDA
-tensor launches the kernel or raises.  Forward only: an input that
-requires grad raises until the backward kernel is ported.
+A CPU tensor takes the plain version (``ref.attention_ref``,
+``ref.attention_bwd_ref``); a CUDA tensor launches the kernel or raises.
+These functions build no autograd graph on the card: the differentiable
+entry point is ``ops.flash_attention``.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_ref)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)      # the kernel's instantiations
@@ -47,10 +53,6 @@ def _launch_fn():
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention_fwd is forward only: the backward kernel "
-            "comes with the training slice (ROADMAP Queue 2 #4)")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError(f"flash attention takes float32 or bfloat16 "
@@ -69,6 +71,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k and v must be on one device")
 
 
+def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """What the kernels take beyond ``_check``."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"the flash kernels take head_dim in {HEAD_DIMS}, "
+                         f"got {q.shape[3]}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("q, k and v need a contiguous last dimension")
+
+
+def _strides(*ts: torch.Tensor):
+    return (ctypes.c_longlong * (3 * len(ts)))(*[
+        t.stride(i) for t in ts for i in (0, 1, 2)])
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         scale: Optional[float] = None,
@@ -85,18 +104,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_ref(q, k, v, causal=causal, window=window,
                              scale=scale, logit_cap=logit_cap,
                              return_lse=return_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu, not "
-                         f"{q.device}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the flash kernel takes head_dim in {HEAD_DIMS}, "
-                         f"got {D}")
-    if any(t.stride(3) != 1 for t in (q, k, v)):
-        raise ValueError("q, k and v need a contiguous last dimension")
+    _check_cuda(q, k, v)
     out = torch.empty_like(q)            # q's layout: (B,S,H,D) stays so
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 12)(*[
-        t.stride(i) for t in (q, k, v, out) for i in (0, 1, 2)])
+    strides = _strides(q, k, v, out)
     fn = _launch_fn()
     with torch.cuda.device(q.device):
         err = fn(_DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(),
@@ -112,3 +123,114 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_fwd.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_launch_fns():
+    lib = _build.library("flash_attention_bwd")
+    common = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+    tail = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong),
+                                 ctypes.c_float, ctypes.c_float,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    dq, dkv = lib.flash_attention_bwd_dq_launch, \
+        lib.flash_attention_bwd_dkv_launch
+    dq.argtypes = common + [ctypes.c_void_p] + tail
+    dkv.argtypes = common + [ctypes.c_void_p] * 2 + tail
+    dq.restype = dkv.restype = ctypes.c_int
+    return dq, dkv
+
+
+def _bwd_launch(which: str, q, k, v, dout, lse, delta, outs, causal,
+                window, scale, logit_cap) -> None:
+    """One launch of the dQ (``outs`` = [dq]) or dK/dV (``outs`` = [dk,
+    dv]) kernel; raises on a non-zero CUDA code."""
+    _check_cuda(q, k, v)
+    if dout.stride(3) != 1 or lse.dtype != torch.float32 \
+            or delta.dtype != torch.float32 or not lse.is_contiguous() \
+            or not delta.is_contiguous():
+        raise ValueError("the backward kernels take dout with a contiguous "
+                         "last dimension and contiguous f32 lse and delta")
+    B, H, Sq, D = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    fn = _bwd_launch_fns()[0 if which == "dq" else 1]
+    strides = _strides(q, k, v, dout, *(
+        [outs[0], k, v] if which == "dq" else [q, *outs]))
+    with torch.cuda.device(q.device):
+        err = fn(_DTYPE_CODES[q.dtype], D,
+                 *[t.data_ptr() for t in (q, k, v, dout, lse, delta, *outs)],
+                 B, H, k.shape[1], Sq, k.shape[2], strides, float(scale),
+                 float(logit_cap), int(causal), int(window),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention {which} kernel launch failed: "
+                           f"CUDA error {err}")
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal=True,
+                           window=0, scale=None, logit_cap=0.0):
+    """The dQ kernel alone, on the card: dq in q's dtype and layout.
+    ``lse`` and ``delta`` are (B,H,Sq) contiguous f32; ``dout`` has a
+    contiguous last dimension.  Counted in
+    ``flash_attention_bwd.launches_dq``."""
+    dq = torch.empty_like(q)
+    _bwd_launch("dq", q, k, v, dout, lse, delta, [dq], causal, window,
+                scale, logit_cap)
+    flash_attention_bwd.launches_dq += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, causal=True,
+                            window=0, scale=None, logit_cap=0.0):
+    """The dK/dV kernel alone, on the card: (dk, dv) in the dtypes and
+    layouts of k and v, each GQA group summed in the kernel.  Counted in
+    ``flash_attention_bwd.launches_dkv``."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch("dkv", q, k, v, dout, lse, delta, [dk, dv], causal, window,
+                scale, logit_cap)
+    flash_attention_bwd.launches_dkv += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, scale: Optional[float] = None,
+                        logit_cap: float = 0.0):
+    """The flash VJP.  q/out/dout (B,H,Sq,D); k/v (B,Hkv,Sk,D); lse
+    (B,H,Sq) f32 from the forward.  Returns (dq, dk, dv) in the dtypes and
+    memory layouts of q, k and v: on the card one launch of the dQ kernel
+    and one of the dK/dV kernel, counted in ``launches_dq`` and
+    ``launches_dkv``.
+
+    δ = rowsum(dO·O) is one plain f32 reduction here, as the reference
+    takes it outside its kernels.  ``dout`` may come from autograd with
+    any strides (even a zero stride from an ``expand``): one whose last
+    dimension is not contiguous is copied to a contiguous tensor first;
+    any other is read in place through its strides."""
+    _check(q, k, v)
+    B, H, Sq, D = q.shape
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q: {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 {(B, H, Sq)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    kw = dict(causal=causal, window=window, logit_cap=logit_cap,
+              scale=scale if scale is not None else 1.0 / math.sqrt(D))
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    if dout.stride(3) != 1:
+        dout = dout.contiguous()
+    # (B,H,Sq) f32; a reduction over strided inputs may keep their
+    # layout, so it is made contiguous for the kernels
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    lse = lse.contiguous()
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches_dq = 0
+flash_attention_bwd.launches_dkv = 0

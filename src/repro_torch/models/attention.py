@@ -4,9 +4,11 @@ Twin of ``repro/models/attention.py``.
 Paths of ``attention_forward``:
 
 * ``naive``  — plain einsum softmax, the oracle; O(S²) memory;
-* ``pallas`` — the flash-attention kernel (``kernels/flash_attention``),
-  the reference's Pallas path: on the card a launch of the CUDA kernel,
-  on the CPU its plain version;
+* ``pallas`` — the flash-attention kernels (``kernels/flash_attention``),
+  the reference's Pallas path: on the card a launch of the CUDA forward
+  kernel and, under autograd, one of each backward kernel (dQ, dK/dV),
+  all reading the (B, S, H, D) projections through strides; on the CPU
+  their plain versions;
 * ``auto``   — ``naive`` up to S = 2048, as in the reference; above that
   the reference takes ``blockwise``, which the port does not have yet.
 
@@ -15,8 +17,8 @@ torch, as they are einsums outside any kernel in the reference.
 
 KV caches: full layers (B, S_max, Hkv, D) and window layers a ring of
 (B, W, Hkv, D) with slot = pos mod W; ``slot_pos`` holds each slot's
-absolute position, -1 when empty.  Cache updates return new tensors,
-as the reference's do; nothing passed in is written.
+absolute position, -1 when empty.  Caches are written in place and
+returned (the reference's functional update without a copy).
 """
 from __future__ import annotations
 

@@ -7,7 +7,8 @@ one card the port keeps one parameter dict (and one cache dict) per
 layer, in layer order, under ``"layers"``, and loops over them in
 Python; ``stack_layout`` is kept for converting the reference's stacked
 parameters (``transformer.params_from_jax``).  Sharding constraints have
-no counterpart on one card.  MAMBA blocks and MoE raise where they would
+no counterpart on one card.  ``cfg.remat`` checkpoints each layer while
+grad is on (``stack_forward``).  MAMBA blocks and MoE raise where they would
 be built (``block_init``, ``block_init_cache``) until their slices
 (ROADMAP Queue 1 #13c, #13d).
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN_LOCAL, MAMBA, ModelConfig
 from repro_torch.models import attention as attn
@@ -125,11 +127,23 @@ def stack_forward(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                   positions: Optional[torch.Tensor] = None,
                   attn_impl: str = "auto"
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Apply all blocks.  Returns (y, total_aux_loss)."""
+    """Apply all blocks.  Returns (y, total_aux_loss).
+
+    With ``cfg.remat`` and grad on, each layer is checkpointed: backward
+    keeps only the layer inputs and recomputes each layer's forward once
+    (with ``attn_impl="pallas"`` that is a second flash-forward launch per
+    layer).  The reference groups its scanned periods two-level (√L
+    groups of checkpointed periods), a schedule for TPU memory that
+    changes no number; the port checkpoints per layer."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for p, kind in zip(params["layers"], cfg.blocks):
-        x, a = block_forward(p, x, kind, cfg, positions=positions,
-                             attn_impl=attn_impl)
+        kw = dict(positions=positions, attn_impl=attn_impl)
+        if remat:
+            x, a = checkpoint(block_forward, p, x, kind, cfg,
+                              use_reentrant=False, **kw)
+        else:
+            x, a = block_forward(p, x, kind, cfg, **kw)
         aux = aux + a
     return x, aux
 

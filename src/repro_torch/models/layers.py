@@ -122,3 +122,19 @@ def unembed(x: torch.Tensor, table: torch.Tensor,
             final_softcap: float = 0.0) -> torch.Tensor:
     """table is always (vocab, d_model)."""
     return softcap(x @ table.t(), final_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Cross entropy (stable, fp32 accumulation)
+# ---------------------------------------------------------------------------
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL; ``labels`` may be int32 (gathered as int64)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

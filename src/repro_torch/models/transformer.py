@@ -4,12 +4,16 @@
 Public API:
   init_params(cfg, gen, device=None)          -> params
   forward(params, cfg, batch)                 -> (logits, aux_loss)
+  hidden_forward(params, cfg, batch)          -> (x, aux_loss)
+  loss_fn(params, cfg, batch)                 -> (loss, metrics)
   init_cache(cfg, batch, max_len)             -> cache
   prefill(params, cfg, batch, cache)          -> (logits_last, cache)
   decode_step(params, cfg, token, cache, pos) -> (logits, cache)
-  params_from_jax / caches_from_jax / caches_to_numpy
+  params_from_jax / params_to_numpy / caches_from_jax / caches_to_numpy
 
-``batch`` is a dict with ``"tokens"`` (B, S).  Parameters follow the
+``batch`` is a dict with ``"tokens"`` (B, S) and, for the loss,
+``"labels"`` (B, S) and optionally ``"row_weights"`` (B,) or
+``"loss_mask"`` (B, S).  Parameters follow the
 reference's names and shapes, except that the stack holds one dict per
 layer (``params["stack"]["layers"]``); ``params_from_jax`` unstacks the
 reference's scanned periods.  Parameters live on the card unless
@@ -23,12 +27,14 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.configs.base import ENCDEC, VLM, ModelConfig
 from repro_torch.models import blocks as blk
-from repro_torch.models.layers import (embed_init, embed_lookup, rmsnorm,
-                                       rmsnorm_init, unembed)
+from repro_torch.models.layers import (cross_entropy, embed_init,
+                                       embed_lookup, rmsnorm, rmsnorm_init,
+                                       softcap, unembed)
 
 Params = Dict[str, Any]
 
@@ -91,6 +97,80 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
 
 
 # ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+def hidden_forward(params: Params, cfg: ModelConfig, batch: Dict[str, Any],
+                   *, attn_impl: str = "auto"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward up to the final norm (no unembed).  Returns (x, aux)."""
+    x = _embed_inputs(params, cfg, batch)
+    x, aux = blk.stack_forward(params["stack"], x, cfg, attn_impl=attn_impl)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def _chunk_nll(xc: torch.Tensor, table: torch.Tensor, lc: torch.Tensor,
+               final_softcap: float,
+               row_weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """Σ of one sequence chunk's (weighted) token NLL.  The reference's
+    one-hot contraction is a gather here: only the label's column is
+    non-zero, so the sum is exact; a label < 0 marks an invalid token."""
+    logits = softcap((xc @ table.t()).float(), final_softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, lc.long().clamp_min(0)[..., None])[..., 0]
+    nll = (lse - ll) * (lc >= 0).float()
+    if row_weights is not None:
+        nll = nll * row_weights[:, None].float()
+    return nll.sum()
+
+
+def chunked_cross_entropy(x: torch.Tensor, table: torch.Tensor,
+                          labels: torch.Tensor, *,
+                          final_softcap: float = 0.0, chunk: int = 128,
+                          row_weights: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """CE without materializing (B, S, V): one sequence chunk at a time,
+    each checkpointed while grad is on, so backward recomputes a chunk's
+    logits instead of keeping them.  The reference pads the last chunk
+    with invalid labels; the port takes a shorter last chunk, which adds
+    the same terms.
+
+    ``row_weights`` (B,): returns Σ_r w_r · Σ_t nll_rt (the fused
+    federated step's c_client / tokens-per-client weights); without it,
+    the mean over valid tokens."""
+    tot = x.new_zeros((), dtype=torch.float32)
+    for s0 in range(0, x.shape[1], chunk):
+        args = (x[:, s0:s0 + chunk], table, labels[:, s0:s0 + chunk],
+                final_softcap, row_weights)
+        tot = tot + (checkpoint(_chunk_nll, *args, use_reentrant=False)
+                     if torch.is_grad_enabled() else _chunk_nll(*args))
+    if row_weights is not None:
+        return tot
+    return tot / (labels >= 0).float().sum().clamp_min(1.0)
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
+            attn_impl: str = "auto", chunked: Optional[bool] = None):
+    """``batch["row_weights"]`` (B,), when present, switches to weighted-sum
+    semantics (federated fused step): loss = Σ_r w_r Σ_t nll_rt + aux.
+    Returns (loss, {"ce", "aux"})."""
+    labels = batch["labels"]
+    row_weights = batch.get("row_weights")
+    if chunked is None:
+        # chunk whenever the full (B, S, V) logits would be large
+        chunked = labels.shape[0] * labels.shape[1] * cfg.vocab_size \
+            > (1 << 28)
+    if chunked or row_weights is not None:
+        x, aux = hidden_forward(params, cfg, batch, attn_impl=attn_impl)
+        loss = chunked_cross_entropy(x, _lm_head_table(params, cfg), labels,
+                                     final_softcap=cfg.final_logit_softcap,
+                                     row_weights=row_weights)
+    else:
+        logits, aux = forward(params, cfg, batch, attn_impl=attn_impl)
+        loss = cross_entropy(logits, labels, batch.get("loss_mask"))
+    return loss + aux, {"ce": loss, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
 # Serving: prefill + decode
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -144,13 +224,15 @@ def _leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
-def tree_map(fn, tree: Any) -> Any:
-    """``fn`` applied to every leaf of nested dicts and lists."""
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` applied to every leaf of nested dicts and lists (leaf by
+    leaf over several trees of one structure)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *[r[k] for r in rest])
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, *vs) for vs in zip(tree, *rest)]
+    return fn(tree, *rest)
 
 
 def _unstack(stack: Params, cfg: ModelConfig) -> List[Any]:
@@ -205,6 +287,17 @@ def params_from_jax(tree: Params, cfg: ModelConfig, device) -> Params:
            if k != "stack"}
     out["stack"] = {"layers": tree_map(_to_torch(device),
                                    _unstack(tree["stack"], cfg))}
+    return out
+
+
+def params_to_numpy(params: Params, cfg: ModelConfig) -> Params:
+    """Inverse of ``params_from_jax``: the port's parameters as numpy
+    arrays in the reference's layout (unrolled or stacked per ``cfg``;
+    bf16 leaves as float32)."""
+    out = {k: tree_map(_to_numpy, v) for k, v in params.items()
+           if k != "stack"}
+    out["stack"] = _restack(tree_map(_to_numpy, params["stack"]["layers"]),
+                            cfg)
     return out
 
 

@@ -86,10 +86,19 @@ def test_fwd_and_lse_match_reference(B, H, Hkv, S, D, win, cap, dtype):
 
 
 def test_requires_grad_raises():
+    """An input that requires grad is differentiated through the backward
+    (which raises on a cotangent that does not fit the output), and
+    inference mode still takes the forward alone."""
     _, (q, k, v) = _inputs(1, 2, 1, 16, 16, "float32", 0)
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue 2 #4"):
-        t_ops.flash_attention(q, k, v)
+    out = t_ops.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    (dq,) = torch.autograd.grad(out.sum(), q)
+    assert dq.shape == q.shape and bool(torch.isfinite(dq).all())
+    qt, kt, vt = (x.detach().transpose(1, 2) for x in (q, k, v))
+    o, lse = t_fa.flash_attention_fwd(qt, kt, vt, return_lse=True)
+    with pytest.raises(ValueError, match="dout"):
+        t_fa.flash_attention_bwd(qt, kt, vt, o, lse, o[:, :1])
     with torch.inference_mode():
         out = t_ops.flash_attention(q.detach(), k, v)
     assert out.shape == q.shape

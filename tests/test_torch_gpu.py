@@ -13,6 +13,9 @@ the parameters.  Flash attention: the reference's f32 FA bound
 2e-5·(1+max|ref|), bf16 one bf16 ulp on top of it (both sides compute
 in f32 and round once), the f32 log-sum-exp 2e-5·(1+max|lse|);
 reduced qwen2-0.5b prefill + decode CPU vs card ≤1e-5·(1+max|ref|).
+Flash backward: the dQ and dK/dV kernels against the plain backward at
+the forward's bounds, and two launches bitwise equal; reduced qwen2-0.5b
+fused steps CPU vs card ≤1e-5·(1+max|ref|) per parameter leaf.
 """
 import numpy as np
 import pytest
@@ -23,11 +26,13 @@ from repro_torch.configs.paper_cnn import CNNConfig
 from repro_torch.core.agg_engine import AggEngine
 from repro_torch.core.scheduler import make_fleet
 from repro_torch.core.tasks import CNNTask
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import FederatedConfig, get_config
+from repro_torch.core import distributed as dist
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_ref)
 from repro_torch.kernels.weighted_agg import weighted_agg as wa
 from repro_torch.kernels.weighted_agg.ref import weighted_agg_ref
 from repro_torch.models import cnn
@@ -286,3 +291,137 @@ def test_prefill_on_card_launches_and_matches_cpu(cuda):
     tmod.prefill(tmod.tree_map(lambda t: t.to(cuda), p_cpu), cfg,
                  {"tokens": tokens.to(cuda)}, attn_impl="naive")
     assert fa.flash_attention_fwd.launches == before
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward and the fused training step
+# ---------------------------------------------------------------------------
+FLASH_BWD_CASES = [
+    # the reference's backward cases (tests/test_kernels.py), then
+    # FLASH_CASES, qwen2-0.5b's training shape (B = 8) and a bf16 D = 128
+    (1, 4, 2, 128, 32, 0, 0.0, "float32"),
+    (1, 4, 2, 160, 32, 48, 0.0, "float32"),
+    (1, 2, 1, 96, 16, 0, 30.0, "float32"),
+    *FLASH_CASES,
+    (8, 14, 2, 512, 64, 0, 0.0, "float32"),
+    (1, 4, 2, 130, 128, 0, 0.0, "bfloat16"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "B,H,Hkv,S,D,win,cap,dtype,causal",
+    [c + (True,) for c in FLASH_BWD_CASES]
+    + [c + (False,) for c in FLASH_BWD_CASES[:6] if not c[5]])
+def test_flash_bwd_kernels_match_plain(cuda, B, H, Hkv, S, D, win, cap,
+                                       dtype, causal):
+    """dQ and dK/dV against the plain backward on the same inputs, in the
+    model's layout through strides; each gradient takes its input's
+    layout; a second launch gives the same bits."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(S * D + H + 1)
+    q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device=cuda)
+                   .to(tdt).transpose(1, 2) for h in (H, Hkv, Hkv, H))
+    kw = dict(causal=causal, window=win, logit_cap=cap)
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    before = (fa.flash_attention_bwd.launches_dq,
+              fa.flash_attention_bwd.launches_dkv)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    ref = attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd.launches_dq,
+            fa.flash_attention_bwd.launches_dkv) == \
+        (before[0] + 2, before[1] + 2)
+    for g, g2, r, x in zip(got, again, ref, (q, k, v)):
+        assert g.dtype == tdt and g.stride() == x.stride()
+        assert torch.equal(g, g2)
+        _assert_close(g, r, rel=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Hkv,S,D,win,cap,dtype",
+                         [FLASH_BWD_CASES[i] for i in (0, 1, 2, 8, 13)])
+def test_flash_autograd_on_card_matches_plain(cuda, B, H, Hkv, S, D, win,
+                                              cap, dtype):
+    """Autograd through ``ops.flash_attention`` (forward and both backward
+    kernels) against the plain backward fed the forward kernel's (out,
+    lse): the forward is deterministic, and in bf16 a plain forward's
+    output may differ by one ulp, which δ would carry into every
+    gradient."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(S + D)
+    q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device=cuda)
+                   .to(tdt) for h in (H, Hkv, Hkv, H))
+    kw = dict(causal=True, window=win, logit_cap=cap)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = fa.flash_attention_bwd.launches_dq
+    flash_attention(*leaves, **kw).backward(do)
+    assert fa.flash_attention_bwd.launches_dq == before + 1
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    out, lse = fa.flash_attention_fwd(qt, kt, vt, return_lse=True, **kw)
+    for x, r in zip(leaves, attention_bwd_ref(qt, kt, vt, out, lse, dot,
+                                              **kw)):
+        _assert_close(x.grad.transpose(1, 2), r, rel=2e-5)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_raises_when_library_fails_to_load(cuda, monkeypatch):
+    """No fall-back: a CUDA backward whose library cannot load raises,
+    and nothing is counted."""
+    q = torch.randn(1, 2, 64, 64, device=cuda)
+    out, lse = fa.flash_attention_fwd(q, q, q, return_lse=True)
+
+    def broken(name):
+        raise OSError(f"cannot load {name}")
+
+    fa._bwd_launch_fns.cache_clear()
+    monkeypatch.setattr(_build, "library", broken)
+    before = (fa.flash_attention_bwd.launches_dq,
+              fa.flash_attention_bwd.launches_dkv)
+    try:
+        with pytest.raises(OSError, match="flash_attention_bwd"):
+            fa.flash_attention_bwd(q, q, q, out, lse, q)
+    finally:
+        fa._bwd_launch_fns.cache_clear()
+    assert (fa.flash_attention_bwd.launches_dq,
+            fa.flash_attention_bwd.launches_dkv) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,K,rows,M,coefs", [
+    (3, 1, 2, 1, [0.2, 0.5, 0.2, 0.1]),
+    (2, 1, 4, 2, [0.1, 0.6, 0.3]),
+    (2, 2, 2, 1, [0.4, 0.3, 0.3])])
+def test_fused_step_on_card_matches_cpu(cuda, C, K, rows, M, coefs):
+    """Reduced qwen2-0.5b through the fused step with the flash kernels:
+    the card's updated parameters match the CPU's (plain versions)
+    ≤1e-5·(1+max) per leaf; per gradient one launch of each flash kernel
+    per layer, and on the K=2 path one weighted_agg launch per leaf."""
+    cfg = get_config("qwen2-0.5b").reduced()
+    p_cpu = tmod.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    rng = np.random.default_rng(C + K + M)
+    batches = {n: rng.integers(0, cfg.vocab_size, (C, K, rows, 40))
+               .astype(np.int32) for n in ("tokens", "labels")}
+    fed = FederatedConfig(local_steps=K, grad_accum=M)
+    res = {}
+    for dev in (torch.device("cpu"), cuda):
+        step = dist.make_csmaafl_step(cfg, fed, attn_impl="pallas",
+                                      device=dev)
+        before = (fa.flash_attention_bwd.launches_dkv,
+                  wa.weighted_agg_flat2d.launches)
+        new, _ = step(tmod.tree_map(lambda t: t.to(dev), p_cpu), batches,
+                      coefs, 1e-2)
+        torch.cuda.synchronize()
+        res[dev.type] = (new, fa.flash_attention_bwd.launches_dkv
+                         - before[0],
+                         wa.weighted_agg_flat2d.launches - before[1])
+    (c_new, c_n, c_agg), (g_new, g_n, g_agg) = res["cpu"], res["cuda"]
+    grads = C * K if K > 1 else M
+    assert (c_n, c_agg) == (0, 0)
+    assert g_n == cfg.num_layers * grads
+    assert g_agg == (len(tmod._leaves(p_cpu)) if K > 1 else 0)
+    for a, b in zip(tmod._leaves(g_new), tmod._leaves(c_new)):
+        assert float((a.cpu() - b).abs().max()) <= \
+            1e-5 * (1 + float(b.abs().max()))

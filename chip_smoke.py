@@ -26,7 +26,8 @@ weighted-aggregation kernel).  Phases, one JSON line each:
 6.  reduced_serve — reduced qwen2-0.5b prefill + 8 decode steps on the
                CPU and on the card: logits and caches ≤1e-5, tokens equal;
 6b. reduced_train — reduced qwen2-0.5b fused steps (K=1, grad_accum=2,
-               K=2) on the CPU and on the card: parameters ≤1e-5;
+               K=2) on the CPU and on the card: parameters and the
+               steps' gradients ≤1e-5·(1+max) per leaf;
 7.  main     — the AFL main path at the paper CNN's full width, M = 100:
                FedAvg, CSMAAFL and the §III-B baseline through ``api.run``;
 8.  serve    — the serving main path at qwen2-0.5b's full width: prefill
@@ -36,7 +37,8 @@ weighted-aggregation kernel).  Phases, one JSON line each:
 8b. train    — the training main path at qwen2-0.5b's full width,
                ``run_spmd`` with C = 4 clients × 2 rows × 512 tokens: 8
                CSMAAFL steps, 2 FedAvg steps, 1 step with K = 2 local
-               steps; then one step through the naive attention;
+               steps; then one step through the naive attention
+               (loss, parameters and gradients ≤1e-5·(1+max));
 9.  timing   — each kernel, its plain version and the one PyTorch call
                computing the same function, timed with CUDA events;
 10. profile  — device busy share and device time by kernel over a short
@@ -441,6 +443,7 @@ def reduced_serve_cpu_vs_card(device, steps=8):
     import numpy as np
     import torch
 
+    from repro_torch._tree import tree_map
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.models import transformer as tmod
@@ -454,7 +457,7 @@ def reduced_serve_cpu_vs_card(device, steps=8):
         np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S)))
     runs = []
     for dev in (torch.device("cpu"), device):
-        params = tmod.tree_map(lambda t: t.to(dev), p_cpu)
+        params = tree_map(lambda t: t.to(dev), p_cpu)
         cache = tmod.init_cache(cfg, B, S + steps, dtype=torch.float32,
                                 device=dev)
         before = fa.flash_attention_fwd.launches
@@ -468,7 +471,7 @@ def reduced_serve_cpu_vs_card(device, steps=8):
             logits, cache = tmod.decode_step(params, cfg, tok, cache,
                                              S + step)
             outs.append(logits.cpu())
-        runs.append((outs, toks, tmod.tree_map(lambda t: t.cpu(), cache),
+        runs.append((outs, toks, tree_map(lambda t: t.cpu(), cache),
                      launches))
     (c_out, c_tok, c_cache, c_n), (g_out, g_tok, g_cache, g_n) = runs
     logit_err = max(float((g - c).abs().max() / (1 + c.abs().max()))
@@ -613,10 +616,31 @@ def _since(before):
 
 def _tree_rel_err(a, b):
     """max over leaves of max|a−b| / (1+max|b|), b the reference."""
-    from repro_torch.models import transformer as tmod
+    from repro_torch._tree import leaves
     return max(float((x.cpu().float() - y.cpu().float()).abs().max()
                      / (1.0 + float(y.float().abs().max())))
-               for x, y in zip(tmod._leaves(a), tmod._leaves(b)))
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def _step_grads(params, cfg, fed, batches, coefs, impl, device):
+    """The gradients a fused step takes from ``params``, outside its
+    update (where lr·g would hide a gradient error under the parameters'
+    rounding): K = 1, the folded-rows gradient of the whole step
+    (``fed.grad_accum`` micro-batches included); K > 1, each client's
+    first local gradient, as a list."""
+    import torch
+
+    from repro_torch.core import distributed as dist
+
+    b = {n: torch.as_tensor(x, device=device, dtype=torch.int64)
+         for n, x in batches.items()}
+    if fed.local_steps == 1:
+        cc = torch.as_tensor(coefs, dtype=torch.float32, device=device)[1:]
+        return dist.fused_value_and_grad(params, b, cc, cfg=cfg, fed=fed,
+                                         attn_impl=impl)[1]
+    return [dist._value_and_grad(params, cfg,
+                                 {n: x[c, 0] for n, x in b.items()}, impl)[1]
+            for c in range(b["tokens"].shape[0])]
 
 
 def reduced_train_cpu_vs_card(device):
@@ -625,12 +649,14 @@ def reduced_train_cpu_vs_card(device):
     (kernels), from the same parameters and batches: the K=1 CSMAAFL step,
     the K=1 step in 2 micro-batches and the K=2 step (per-client local
     SGD, blended per leaf by weighted_agg).  Parameters ≤1e-5·(1+max) per
-    leaf; on the card one flash forward, dQ and dK/dV launch per layer and
-    gradient, one weighted_agg launch per leaf on the K=2 path, none on
-    the CPU."""
+    leaf, and the step's gradients (``_step_grads``) ≤1e-5·(1+max|g|) per
+    leaf; on the card one flash forward, dQ and dK/dV launch per layer
+    and gradient, one weighted_agg launch per leaf on the K=2 path, none
+    on the CPU."""
     import numpy as np
     import torch
 
+    from repro_torch._tree import leaves, tree_map
     from repro_torch.configs.base import FederatedConfig, get_config
     from repro_torch.core import distributed as dist
     from repro_torch.models import transformer as tmod
@@ -639,7 +665,7 @@ def reduced_train_cpu_vs_card(device):
     p_cpu = tmod.init_params(cfg, torch.Generator().manual_seed(0),
                              device="cpu")
     _off_zero(p_cpu, torch.Generator().manual_seed(1))
-    n_leaves = len(tmod._leaves(p_cpu))
+    n_leaves = len(leaves(p_cpu))
     rng = np.random.default_rng(1)
     cases = {   # name: (C, K, rows, grad_accum, coefs)
         "k1": (3, 1, 2, 1, [0.2, 0.5, 0.2, 0.1]),
@@ -655,22 +681,26 @@ def reduced_train_cpu_vs_card(device):
         for dev in (torch.device("cpu"), device):
             step = dist.make_csmaafl_step(cfg, fed, attn_impl="pallas",
                                           device=dev)
+            p = tree_map(lambda t: t.to(dev), p_cpu)
             before = _launch_counts()
-            new, m = step(tmod.tree_map(lambda t: t.to(dev), p_cpu), batches,
-                          coefs, 1e-2)
+            new, m = step(p, batches, coefs, 1e-2)
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-            res.append((new, float(m["loss"]), _since(before)))
-        (c_new, c_loss, c_n), (g_new, g_loss, g_n) = res
+            n = _since(before)
+            res.append((new, float(m["loss"]), n,
+                        _step_grads(p, cfg, fed, batches, coefs, "pallas",
+                                    dev)))
+        (c_new, c_loss, c_n, c_g), (g_new, g_loss, g_n, g_g) = res
         grads = C * K if K > 1 else M
         want = {"flash_fwd": cfg.num_layers * grads,
                 "flash_bwd_dq": cfg.num_layers * grads,
                 "flash_bwd_dkv": cfg.num_layers * grads,
                 "weighted_agg": n_leaves if K > 1 else 0}
-        rec = {"param_rel_err": _tree_rel_err(g_new, c_new), "tol": 1e-5,
+        rec = {"param_rel_err": _tree_rel_err(g_new, c_new),
+               "grad_rel_err": _tree_rel_err(g_g, c_g), "tol": 1e-5,
                "loss_cpu": c_loss, "loss_card": g_loss,
                "card_launches": g_n, "cpu_launches": c_n}
-        check(rec["param_rel_err"] <= 1e-5
+        check(rec["param_rel_err"] <= 1e-5 and rec["grad_rel_err"] <= 1e-5
               and abs(g_loss - c_loss) <= 1e-5 * (1 + abs(c_loss)),
               f"reduced train {name} CPU vs card: {rec}")
         check(g_n == want and not any(c_n.values()),
@@ -696,6 +726,7 @@ def train_main_path(device):
     import numpy as np
     import torch
 
+    from repro_torch._tree import leaves
     from repro_torch.configs.base import FederatedConfig, get_config
     from repro_torch.core import distributed as dist
     from repro_torch.data.synthetic import TokenStream
@@ -738,18 +769,20 @@ def train_main_path(device):
         check(all(math.isfinite(x) for x in run.losses),
               f"train {name}: losses {run.losses}")
     launches = _launch_counts()
-    check(all(bool(torch.isfinite(t).all()) for t in tmod._leaves(params)),
+    check(all(bool(torch.isfinite(t).all()) for t in leaves(params)),
           "train: non-finite parameters")
-    L, leaves = cfg.num_layers, len(tmod._leaves(p0))
+    L, n_leaves = cfg.num_layers, len(leaves(p0))
     grads = 8 + 2 + TRAIN_C * 2       # gradient computations on the path
     fwd = 2 if cfg.remat else 1       # remat recomputes each forward
     want = {"flash_fwd": fwd * L * grads, "flash_bwd_dq": L * grads,
-            "flash_bwd_dkv": L * grads, "weighted_agg": leaves}
+            "flash_bwd_dkv": L * grads, "weighted_agg": n_leaves}
     check(launches == want, f"train launches {launches}, expected {want}")
     del params, run
 
     # one step through the flash kernels and through the naive attention,
-    # on each client stream's first batch, FedAvg coefficients
+    # on each client stream's first batch, FedAvg coefficients: the
+    # updated parameters, and the step's gradient itself (lr·g alone
+    # would hide a gradient error under the parameters' rounding)
     draws = [TokenStream(cfg.vocab_size, cid=c, seed=0)
              .sample_batch(TRAIN_ROWS, TRAIN_S) for c in range(TRAIN_C)]
     batch = {n: np.stack([d[n] for d in draws])[:, None]
@@ -757,28 +790,31 @@ def train_main_path(device):
     coefs = np.full(TRAIN_C + 1, 1.0 / TRAIN_C, np.float32)
     coefs[0] = 0.0
     fed = FederatedConfig(num_clients=TRAIN_C)
-    out = {}
+    out, grad = {}, {}
     for impl in ("pallas", "naive"):
         step = dist.make_csmaafl_step(cfg, fed, attn_impl=impl, device=device)
         out[impl] = step(p0, batch, coefs, fed.lr)
+        grad[impl] = _step_grads(p0, cfg, fed, batch, coefs, impl, device)
     torch.cuda.synchronize()
     (pn, pm), (nn_, nm) = out["pallas"], out["naive"]
     loss_p, loss_n = float(pm["loss"]), float(nm["loss"])
     param_err = _tree_rel_err(pn, nn_)
-    grad_diff = max(float((a - b).abs().max())
-                    for a, b in zip(tmod._leaves(pn), tmod._leaves(nn_))) \
-        / fed.lr
+    grad_err = _tree_rel_err(grad["pallas"], grad["naive"])
+    grad_diff = max(float((a - b).abs().max()) for a, b in
+                    zip(leaves(grad["pallas"]), leaves(grad["naive"])))
     rec = {"arch": cfg.arch_id, "params": tmod.num_params(p0),
            "clients": TRAIN_C, "rows": TRAIN_ROWS, "seq": TRAIN_S,
            "tokens_per_step": TRAIN_C * TRAIN_ROWS * TRAIN_S,
            "setup_s": setup_s, "runs": runs, "launches": launches,
            "max_memory_allocated": peak,
            "pallas_vs_naive": {"loss_pallas": loss_p, "loss_naive": loss_n,
-                               "param_rel_err": param_err, "tol": 1e-5,
+                               "param_rel_err": param_err,
+                               "grad_rel_err": grad_err, "tol": 1e-5,
                                "max_grad_diff": grad_diff}}
     check(abs(loss_p - loss_n) <= 1e-5 * (1 + abs(loss_n))
-          and param_err <= 1e-5, f"train pallas vs naive: {rec}")
-    del pn, nn_, out
+          and param_err <= 1e-5 and grad_err <= 1e-5,
+          f"train pallas vs naive: {rec}")
+    del pn, nn_, out, grad
     return rec, (cfg, p0, batch, coefs)
 
 

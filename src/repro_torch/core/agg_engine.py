@@ -39,10 +39,10 @@ import numpy as np
 import torch
 
 from repro_torch._device import to_device
+from repro_torch._tree import leaves, tree_map
 from repro_torch.core import aggregation as agg
 from repro_torch.kernels.weighted_agg.ref import weighted_agg_ref
 from repro_torch.kernels.weighted_agg.weighted_agg import weighted_agg_flat2d
-from repro_torch.models.transformer import _leaves, tree_map
 
 Params = Dict[str, torch.Tensor]
 
@@ -216,7 +216,7 @@ def weighted_sum_leaves(coef0, global_tree, coefs, clients_stacked_tree):
     weighted-aggregation kernel, global leaf (n,), client leaves (C, n),
     coefficients [c0, c_1..c_C] in f32 (on a CPU tensor the wrapper takes
     the plain version).  f32 accumulation, output in the leaf's dtype."""
-    dev = _leaves(global_tree)[0].device
+    dev = leaves(global_tree)[0].device
     c = torch.cat([torch.as_tensor(coef0, dtype=torch.float32,
                                    device=dev).reshape(1),
                    torch.as_tensor(coefs, dtype=torch.float32,

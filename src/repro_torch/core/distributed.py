@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device, to_device
+from repro_torch._tree import leaves, tree_map
 from repro_torch.configs.base import FederatedConfig, ModelConfig
 from repro_torch.core import agg_engine
 from repro_torch.models import transformer as tmod
@@ -45,18 +46,17 @@ def _value_and_grad(params: Params, cfg: ModelConfig,
                     batch: Dict[str, torch.Tensor], attn_impl: str
                     ) -> Tuple[torch.Tensor, Params]:
     """(loss, grads) of ``tmod.loss_fn``; grads in the tree of params."""
-    leaves = tmod._leaves(params)
-    live = [t.detach().requires_grad_(True) for t in leaves]
+    live = [t.detach().requires_grad_(True) for t in leaves(params)]
     it = iter(live)
-    p = tmod.tree_map(lambda _: next(it), params)
+    p = tree_map(lambda _: next(it), params)
     loss, _ = tmod.loss_fn(p, cfg, batch, attn_impl=attn_impl)
     grads = iter(torch.autograd.grad(loss, live))
-    return loss.detach(), tmod.tree_map(lambda _: next(grads), params)
+    return loss.detach(), tree_map(lambda _: next(grads), params)
 
 
 def _sgd(params: Params, grads: Params, lr: float) -> Params:
     """w − lr·g in f32, back to each leaf's dtype."""
-    return tmod.tree_map(
+    return tree_map(
         lambda w, g: (w.float() - lr * g.float()).to(w.dtype), params, grads)
 
 
@@ -75,6 +75,37 @@ def _local_sgd(params: Params, batches: Dict[str, torch.Tensor], lr: float,
         params = _sgd(params, grads, lr)
         losses.append(loss)
     return params, torch.stack(losses).mean()
+
+
+def fused_value_and_grad(global_params: Params,
+                         batches: Dict[str, torch.Tensor],
+                         client_coefs: torch.Tensor, *, cfg: ModelConfig,
+                         fed: FederatedConfig, attn_impl: str = "auto"
+                         ) -> Tuple[torch.Tensor, Params]:
+    """(loss, gradient) of the K = 1 path: the C clients' (C, 1, b, S)
+    batches fold into C·b rows with per-row loss weights
+    c_client / tokens_per_client (``client_coefs`` is (C,)), so the
+    gradient is Σ_c c_c ∇mean_c; with ``fed.grad_accum`` = M > 1 (and
+    M | C·b) M micro-batches of rows are summed in f32."""
+    C = batches["tokens"].shape[0]
+    b, seq = batches["labels"].shape[2], batches["labels"].shape[3]
+    flat = {n: x.reshape(C * b, *x.shape[3:]) for n, x in batches.items()}
+    flat["row_weights"] = client_coefs.float().repeat_interleave(b) \
+        / (b * seq)
+    M, R = fed.grad_accum, C * b
+    if M <= 1 or R % M:
+        return _value_and_grad(global_params, cfg, flat, attn_impl)
+    loss, grads = None, None
+    for m in range(M):
+        micro = {n: x[m * (R // M):(m + 1) * (R // M)]
+                 for n, x in flat.items()}
+        l, g = _value_and_grad(global_params, cfg, micro, attn_impl)
+        if grads is None:
+            loss, grads = l, tree_map(lambda x: x.float(), g)
+        else:
+            loss = loss + l
+            grads = tree_map(lambda a, x: a + x.float(), grads, g)
+    return loss, grads
 
 
 # ---------------------------------------------------------------------------
@@ -99,41 +130,22 @@ def csmaafl_train_step(global_params: Params,
     coefs = coefs.float()
     c0, cc = coefs[0], coefs[1:]
     if fed.local_steps == 1:
-        # (C, 1, b, ...) -> (C·b, ...); row weights c_client / tokens
-        b, seq = batches["labels"].shape[2], batches["labels"].shape[3]
-        flat = {n: x.reshape(C * b, *x.shape[3:]) for n, x in batches.items()}
-        flat["row_weights"] = cc.repeat_interleave(b) / (b * seq)
-        M = fed.grad_accum
-        R = C * b
-        if M > 1 and R % M == 0:
-            loss, grads = None, None
-            for m in range(M):
-                micro = {n: x[m * (R // M):(m + 1) * (R // M)]
-                         for n, x in flat.items()}
-                l, g = _value_and_grad(global_params, cfg, micro, attn_impl)
-                if grads is None:
-                    loss = l
-                    grads = tmod.tree_map(lambda x: x.float(), g)
-                else:
-                    loss = loss + l
-                    grads = tmod.tree_map(lambda a, x: a + x.float(), grads,
-                                          g)
-        else:
-            loss, grads = _value_and_grad(global_params, cfg, flat,
-                                          attn_impl)
+        loss, grads = fused_value_and_grad(global_params, batches, cc,
+                                           cfg=cfg, fed=fed,
+                                           attn_impl=attn_impl)
         losses = loss[None]
         new_global = _sgd(global_params, grads, lr)
     else:
         # clients one after another; each local model lands in the
         # stacked (C, ...) leaves the blend reads, and is then dropped
-        stacked = tmod.tree_map(
+        stacked = tree_map(
             lambda t: t.new_empty((C, *t.shape)), global_params)
         losses = []
         for c in range(C):
             local, loss = _local_sgd(
                 global_params, {n: x[c] for n, x in batches.items()}, lr,
                 cfg, fed.local_steps, attn_impl)
-            tmod.tree_map(lambda s, w: s[c].copy_(w), stacked, local)
+            tree_map(lambda s, w: s[c].copy_(w), stacked, local)
             losses.append(loss)
             del local
         losses = torch.stack(losses)
@@ -160,7 +172,7 @@ def make_csmaafl_step(cfg: ModelConfig, fed: FederatedConfig, *,
     torch.backends.cudnn.allow_tf32 = False
 
     def step(params: Params, batches, coefs, lr: float):
-        where = tmod._leaves(params)[0].device
+        where = leaves(params)[0].device
         if where.type != dev.type:
             raise ValueError(f"the step runs on {dev}; the parameters are "
                              f"on {where}")

@@ -18,8 +18,10 @@ its input's memory layout.  f32 or bf16 storage, f32 arithmetic.
 
 A CPU tensor takes the plain version (``ref.attention_ref``,
 ``ref.attention_bwd_ref``); a CUDA tensor launches the kernel or raises.
-These functions build no autograd graph on the card: the differentiable
-entry point is ``ops.flash_attention``.
+These functions build no autograd graph, on either device: called with
+an input that requires grad while grad mode is on, they raise.  The
+differentiable entry point is ``ops.flash_attention``, whose
+``autograd.Function`` calls them with grad mode off.
 """
 from __future__ import annotations
 
@@ -71,6 +73,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k and v must be on one device")
 
 
+def _no_graph(fn: str, *ts: torch.Tensor) -> None:
+    """Refuse to be differentiated: a kernel's output carries no
+    gradient, and the plain version's would on the CPU only."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(f"{fn} builds no autograd graph; differentiate "
+                           f"through ops.flash_attention")
+
+
 def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """What the kernels take beyond ``_check``."""
     if q.device.type != "cuda":
@@ -97,8 +107,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     log-sum-exp (B,H,Sq) in f32.  Query i and key j sit at positions i
     and j (self-attention over one sequence)."""
     _check(q, k, v)
+    _no_graph("flash_attention_fwd", q, k, v)
     B, H, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
@@ -107,19 +117,26 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_cuda(q, k, v)
     out = torch.empty_like(q)            # q's layout: (B,S,H,D) stays so
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    strides = _strides(q, k, v, out)
+    _fwd_launch(q, k, v, out, lse, causal, window, scale, logit_cap)
+    flash_attention_fwd.launches += 1
+    return (out, lse) if return_lse else out
+
+
+def _fwd_launch(q, k, v, out, lse, causal, window, scale, logit_cap) -> None:
+    """One launch of the forward kernel into ``out`` (q's shape, read
+    through its strides) and ``lse`` (contiguous (B,H,Sq) f32); raises on
+    a non-zero CUDA code."""
+    B, H, Sq, D = q.shape
     fn = _launch_fn()
     with torch.cuda.device(q.device):
         err = fn(_DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H, Hkv,
-                 Sq, Sk, strides, float(scale), float(logit_cap),
-                 int(causal), int(window),
+                 v.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H,
+                 k.shape[1], Sq, k.shape[2], _strides(q, k, v, out),
+                 float(scale), float(logit_cap), int(causal), int(window),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {err}")
-    flash_attention_fwd.launches += 1
-    return (out, lse) if return_lse else out
 
 
 flash_attention_fwd.launches = 0
@@ -145,6 +162,7 @@ def _bwd_launch(which: str, q, k, v, dout, lse, delta, outs, causal,
     """One launch of the dQ (``outs`` = [dq]) or dK/dV (``outs`` = [dk,
     dv]) kernel; raises on a non-zero CUDA code."""
     _check_cuda(q, k, v)
+    _no_graph(f"flash_attention_bwd_{which}", q, k, v, dout, lse, delta)
     if dout.stride(3) != 1 or lse.dtype != torch.float32 \
             or delta.dtype != torch.float32 or not lse.is_contiguous() \
             or not delta.is_contiguous():
@@ -208,6 +226,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dimension is not contiguous is copied to a contiguous tensor first;
     any other is read in place through its strides."""
     _check(q, k, v)
+    _no_graph("flash_attention_bwd", q, k, v, out, lse, dout)
     B, H, Sq, D = q.shape
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:

@@ -103,6 +103,14 @@ def weighted_agg_flat2d(g: torch.Tensor, rows: torch.Tensor,
     out = torch.empty_like(g)
     if g.shape[0] == 0:
         return out
+    _launch(g, rows, coefs, cids, C, out)
+    weighted_agg_flat2d.launches += 1
+    return out
+
+
+def _launch(g, rows, coefs, cids, C: int, out: torch.Tensor) -> None:
+    """One launch of the kernel into ``out`` (n,); raises on a non-zero
+    CUDA code."""
     fn = _launch_fn()
     with torch.cuda.device(g.device):
         err = fn(_DTYPE_CODES[g.dtype], g.data_ptr(), rows.data_ptr(),
@@ -114,8 +122,6 @@ def weighted_agg_flat2d(g: torch.Tensor, rows: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"weighted_agg kernel launch failed: CUDA error "
                            f"{err}")
-    weighted_agg_flat2d.launches += 1
-    return out
 
 
 weighted_agg_flat2d.launches = 0

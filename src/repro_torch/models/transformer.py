@@ -30,6 +30,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch._tree import leaves, tree_map
 from repro_torch.configs.base import ENCDEC, VLM, ModelConfig
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (cross_entropy, embed_init,
@@ -210,31 +211,12 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
 
 
 def num_params(params: Any) -> int:
-    return sum(t.numel() for t in _leaves(params))
+    return sum(t.numel() for t in leaves(params))
 
 
 # ---------------------------------------------------------------------------
 # Conversion from and to the reference's layout (numpy arrays)
 # ---------------------------------------------------------------------------
-def _leaves(tree: Any) -> List[Any]:
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
-
-
-def tree_map(fn, tree: Any, *rest: Any) -> Any:
-    """``fn`` applied to every leaf of nested dicts and lists (leaf by
-    leaf over several trees of one structure)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *[r[k] for r in rest])
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, *vs) for vs in zip(tree, *rest)]
-    return fn(tree, *rest)
-
-
 def _unstack(stack: Params, cfg: ModelConfig) -> List[Any]:
     """The reference's {"period": [...], "rem": [...]} as one entry per
     layer, in layer order: period i, pattern slot j is layer i·P + j."""

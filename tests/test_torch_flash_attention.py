@@ -86,17 +86,26 @@ def test_fwd_and_lse_match_reference(B, H, Hkv, S, D, win, cap, dtype):
 
 
 def test_requires_grad_raises():
-    """An input that requires grad is differentiated through the backward
-    (which raises on a cotangent that does not fit the output), and
-    inference mode still takes the forward alone."""
+    """The kernels' wrappers build no graph: called directly with an input
+    that requires grad, in grad mode, each raises and names the
+    differentiable entry point, on the CPU as on the card.  Through
+    ``ops.flash_attention`` the same input is differentiated (the
+    backward raises on a cotangent that does not fit the output), and
+    without grad mode the wrappers run."""
     _, (q, k, v) = _inputs(1, 2, 1, 16, 16, "float32", 0)
     q.requires_grad_(True)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    with pytest.raises(RuntimeError, match="ops.flash_attention"):
+        t_fa.flash_attention_fwd(qt, kt, vt)
+    with torch.no_grad():
+        o, lse = t_fa.flash_attention_fwd(qt, kt, vt, return_lse=True)
+    with pytest.raises(RuntimeError, match="ops.flash_attention"):
+        t_fa.flash_attention_bwd(qt, kt, vt, o, lse, o)
     out = t_ops.flash_attention(q, k, v)
     assert out.grad_fn is not None
     (dq,) = torch.autograd.grad(out.sum(), q)
     assert dq.shape == q.shape and bool(torch.isfinite(dq).all())
-    qt, kt, vt = (x.detach().transpose(1, 2) for x in (q, k, v))
-    o, lse = t_fa.flash_attention_fwd(qt, kt, vt, return_lse=True)
+    qt = qt.detach()
     with pytest.raises(ValueError, match="dout"):
         t_fa.flash_attention_bwd(qt, kt, vt, o, lse, o[:, :1])
     with torch.inference_mode():

@@ -15,13 +15,16 @@ in f32 and round once), the f32 log-sum-exp 2e-5·(1+max|lse|);
 reduced qwen2-0.5b prefill + decode CPU vs card ≤1e-5·(1+max|ref|).
 Flash backward: the dQ and dK/dV kernels against the plain backward at
 the forward's bounds, and two launches bitwise equal; reduced qwen2-0.5b
-fused steps CPU vs card ≤1e-5·(1+max|ref|) per parameter leaf.
+fused steps CPU vs card ≤1e-5·(1+max|ref|) per parameter leaf and per
+gradient leaf.  Every kernel, launched into an output between NaN
+guards, writes all of its output and nothing outside it.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import api
+from repro_torch._tree import leaves, tree_map
 from repro_torch.configs.paper_cnn import CNNConfig
 from repro_torch.core.agg_engine import AggEngine
 from repro_torch.core.scheduler import make_fleet
@@ -247,9 +250,25 @@ def test_init_params_lands_on_the_card(cuda):
     on_card = tmod.init_params(cfg, torch.Generator().manual_seed(0))
     on_cpu = tmod.init_params(cfg, torch.Generator().manual_seed(0),
                               device="cpu")
-    for a, b in zip(tmod._leaves(on_card), tmod._leaves(on_cpu)):
+    for i, (a, b) in enumerate(zip(leaves(on_card), leaves(on_cpu))):
         assert a.device.type == "cuda" and b.device.type == "cpu"
-        assert torch.equal(a.cpu(), b)
+        back = a.cpu()
+        bad = back != b
+        if bool(bad.any()):
+            # say where and how much, and which side moved: a third CPU
+            # draw, a second copy back, and the CPU draw's own round trip
+            at = bad.reshape(-1).nonzero().reshape(-1)
+            third = leaves(tmod.init_params(
+                cfg, torch.Generator().manual_seed(0), device="cpu"))[i]
+            pytest.fail(
+                f"leaf {i} {tuple(b.shape)}: {at.numel()} of {b.numel()} "
+                f"elements differ, flat indices {int(at[0])}..{int(at[-1])}"
+                f", max |Δ| {float((back - b).abs().max())}; a third CPU "
+                f"draw equals the card's: {torch.equal(third, back)}, the "
+                f"CPU one: {torch.equal(third, b)}; a second copy back "
+                f"equals the first: {torch.equal(a.cpu(), back)}; the CPU "
+                f"draw survives a round trip to the card: "
+                f"{torch.equal(b.to(cuda).cpu(), b)}")
 
 
 @pytest.mark.gpu
@@ -264,7 +283,7 @@ def test_prefill_on_card_launches_and_matches_cpu(cuda):
         np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)))
     runs = []
     for dev in (torch.device("cpu"), cuda):
-        params = tmod.tree_map(lambda t: t.to(dev), p_cpu)
+        params = tree_map(lambda t: t.to(dev), p_cpu)
         cache = tmod.init_cache(cfg, 2, 48, dtype=torch.float32, device=dev)
         before = fa.flash_attention_fwd.launches
         logits, cache = tmod.prefill(params, cfg, {"tokens": tokens.to(dev)},
@@ -288,7 +307,7 @@ def test_prefill_on_card_launches_and_matches_cpu(cuda):
             assert np.abs(gl[name] - cl[name]).max() <= \
                 1e-5 * (1 + np.abs(cl[name]).max())
     before = fa.flash_attention_fwd.launches
-    tmod.prefill(tmod.tree_map(lambda t: t.to(cuda), p_cpu), cfg,
+    tmod.prefill(tree_map(lambda t: t.to(cuda), p_cpu), cfg,
                  {"tokens": tokens.to(cuda)}, attn_impl="naive")
     assert fa.flash_attention_fwd.launches == before
 
@@ -339,6 +358,107 @@ def test_flash_bwd_kernels_match_plain(cuda, B, H, Hkv, S, D, win, cap,
         _assert_close(g, r, rel=2e-5)
 
 
+def _guarded(shape, dtype, device, model_layout=False):
+    """An output of ``shape`` inside a NaN-filled buffer with a guard on
+    each side of 64 times its last two dimensions (64 times a row of
+    heads in the model layout) plus 64 elements: more than a whole
+    64-row tile past either end.  A (B, H, S, D) output is stored as
+    (B, S, H, D) when ``model_layout``.  Returns (view, buffer, guard
+    length)."""
+    n = int(np.prod(shape))
+    pad = 64 * int(np.prod(shape[-2:] if not model_layout
+                           else (shape[1], shape[3]))) + 64
+    buf = torch.full((n + 2 * pad,), float("nan"), dtype=dtype,
+                     device=device)
+    block = buf[pad:pad + n]
+    if model_layout:
+        B, H, S, D = shape
+        return block.view(B, S, H, D).transpose(1, 2), buf, pad
+    return block.view(shape), buf, pad
+
+
+def _assert_written_in_bounds(view, buf, pad):
+    assert bool(buf[:pad].isnan().all()) and bool(buf[-pad:].isnan().all()), \
+        "the kernel wrote outside its output"
+    assert not bool(view.isnan().any()), \
+        "the kernel left elements of its output unwritten"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model_layout", [False, True])
+@pytest.mark.parametrize("B,H,Hkv,S,D,win,cap,dtype", [
+    (1, 4, 2, 160, 32, 48, 0.0, "float32"),
+    (1, 3, 1, 96, 16, 32, 30.0, "float32"),
+    (4, 14, 2, 200, 64, 0, 0.0, "float32"),
+    (4, 14, 2, 200, 64, 0, 0.0, "bfloat16"),
+    (2, 2, 1, 65, 64, 0, 0.0, "float32"),
+    (1, 2, 2, 1, 64, 0, 0.0, "float32"),
+    (1, 2, 2, 300, 256, 0, 0.0, "float32"),
+    (1, 4, 2, 130, 128, 0, 0.0, "bfloat16")])
+def test_flash_kernels_write_only_their_outputs(cuda, B, H, Hkv, S, D, win,
+                                                cap, dtype, model_layout):
+    """The forward, dQ and dK/dV kernels, launched into outputs that sit
+    between NaN guards of a whole tile of rows, at ragged lengths: no
+    guard element changes, every output element is written, the inputs
+    are left as they were, and the results equal the wrappers' bits."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(S * D + H + 2)
+    q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device=cuda)
+                   .to(tdt).transpose(1, 2) for h in (H, Hkv, Hkv, H))
+    kw = dict(causal=True, window=win, logit_cap=cap)
+    scale = 1.0 / D ** 0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    inputs = [t.clone() for t in (q, k, v, do, out, lse, delta)]
+
+    o_g, o_buf, o_pad = _guarded(q.shape, tdt, cuda, model_layout)
+    l_g, l_buf, l_pad = _guarded(lse.shape, torch.float32, cuda)
+    fa._fwd_launch(q, k, v, o_g, l_g, True, win, scale, cap)
+    q_g, q_buf, q_pad = _guarded(q.shape, tdt, cuda, model_layout)
+    fa._bwd_launch("dq", q, k, v, do, lse, delta, [q_g], True, win, scale,
+                   cap)
+    k_g, k_buf, k_pad = _guarded(k.shape, tdt, cuda, model_layout)
+    v_g, v_buf, v_pad = _guarded(k.shape, tdt, cuda, model_layout)
+    fa._bwd_launch("dkv", q, k, v, do, lse, delta, [k_g, v_g], True, win,
+                   scale, cap)
+    torch.cuda.synchronize()
+    for view, buf, pad, want in ((o_g, o_buf, o_pad, out),
+                                 (l_g, l_buf, l_pad, lse),
+                                 (q_g, q_buf, q_pad, dq),
+                                 (k_g, k_buf, k_pad, dk),
+                                 (v_g, v_buf, v_pad, dv)):
+        _assert_written_in_bounds(view, buf, pad)
+        assert torch.equal(view, want)
+    for t, before in zip((q, k, v, do, out, lse, delta), inputs):
+        assert torch.equal(t, before)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,shift", [(1_000_003, 0), (4099, 1), (7, 3)])
+def test_weighted_agg_writes_only_its_output(cuda, dtype, n, shift):
+    """The weighted-aggregation kernel launched into an output between
+    NaN guards (16-byte aligned, so vectorised, or shifted off it, so
+    scalar): no guard element changes and every element is written."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(n + shift)
+    width = (n + 7) // 8 * 8            # 16-byte aligned row stride
+    rows = torch.randn(3, width, generator=gen, device=cuda).to(tdt)[:, :n]
+    g = torch.randn(n, generator=gen, device=cuda).to(tdt)
+    coefs = torch.rand(4, generator=gen, device=cuda)
+    buf = torch.full((n + 2 * 4096 + shift,), float("nan"), dtype=tdt,
+                     device=cuda)
+    view = buf[4096 + shift:4096 + shift + n]
+    assert wa.vectorizable(g, rows, view) == (shift == 0)
+    wa._launch(g, rows, coefs, None, 3, view)
+    torch.cuda.synchronize()
+    assert bool(buf[:4096 + shift].isnan().all())
+    assert bool(buf[4096 + shift + n:].isnan().all())
+    assert not bool(view.isnan().any())
+    _assert_close(view, weighted_agg_ref(g, rows, coefs))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,H,Hkv,S,D,win,cap,dtype",
                          [FLASH_BWD_CASES[i] for i in (0, 1, 2, 8, 13)])
@@ -354,15 +474,39 @@ def test_flash_autograd_on_card_matches_plain(cuda, B, H, Hkv, S, D, win,
     q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device=cuda)
                    .to(tdt) for h in (H, Hkv, Hkv, H))
     kw = dict(causal=True, window=win, logit_cap=cap)
-    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    inputs = [x.clone().requires_grad_(True) for x in (q, k, v)]
     before = fa.flash_attention_bwd.launches_dq
-    flash_attention(*leaves, **kw).backward(do)
+    flash_attention(*inputs, **kw).backward(do)
     assert fa.flash_attention_bwd.launches_dq == before + 1
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
     out, lse = fa.flash_attention_fwd(qt, kt, vt, return_lse=True, **kw)
-    for x, r in zip(leaves, attention_bwd_ref(qt, kt, vt, out, lse, dot,
+    for x, r in zip(inputs, attention_bwd_ref(qt, kt, vt, out, lse, dot,
                                               **kw)):
         _assert_close(x.grad.transpose(1, 2), r, rel=2e-5)
+
+
+@pytest.mark.gpu
+def test_flash_wrappers_build_no_graph_on_the_card(cuda):
+    """Called directly with an input that requires grad, in grad mode, the
+    forward and backward wrappers raise on the card as on the CPU, and
+    launch nothing; ``ops.flash_attention`` is the differentiable path."""
+    q = torch.randn(1, 2, 64, 64, device=cuda)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd(q, q, q, return_lse=True)
+    r = q.clone().requires_grad_(True)
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_bwd.launches_dq,
+              fa.flash_attention_bwd.launches_dkv)
+    with pytest.raises(RuntimeError, match="ops.flash_attention"):
+        fa.flash_attention_fwd(r, q, q)
+    with pytest.raises(RuntimeError, match="ops.flash_attention"):
+        fa.flash_attention_bwd(r, q, q, out, lse, q)
+    delta = (q * out).sum(-1).contiguous()
+    with pytest.raises(RuntimeError, match="ops.flash_attention"):
+        fa.flash_attention_bwd_dq(r, q, q, q, lse, delta)
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd.launches_dq,
+            fa.flash_attention_bwd.launches_dkv) == before
 
 
 @pytest.mark.gpu
@@ -411,7 +555,7 @@ def test_fused_step_on_card_matches_cpu(cuda, C, K, rows, M, coefs):
                                       device=dev)
         before = (fa.flash_attention_bwd.launches_dkv,
                   wa.weighted_agg_flat2d.launches)
-        new, _ = step(tmod.tree_map(lambda t: t.to(dev), p_cpu), batches,
+        new, _ = step(tree_map(lambda t: t.to(dev), p_cpu), batches,
                       coefs, 1e-2)
         torch.cuda.synchronize()
         res[dev.type] = (new, fa.flash_attention_bwd.launches_dkv
@@ -421,7 +565,25 @@ def test_fused_step_on_card_matches_cpu(cuda, C, K, rows, M, coefs):
     grads = C * K if K > 1 else M
     assert (c_n, c_agg) == (0, 0)
     assert g_n == cfg.num_layers * grads
-    assert g_agg == (len(tmod._leaves(p_cpu)) if K > 1 else 0)
-    for a, b in zip(tmod._leaves(g_new), tmod._leaves(c_new)):
+    assert g_agg == (len(leaves(p_cpu)) if K > 1 else 0)
+    for a, b in zip(leaves(g_new), leaves(c_new)):
+        assert float((a.cpu() - b).abs().max()) <= \
+            1e-5 * (1 + float(b.abs().max()))
+    # the step's gradients themselves: lr·g in the update would hide a
+    # gradient error under the parameters' rounding
+    g = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = tree_map(lambda t: t.to(dev), p_cpu)
+        b = {n: torch.as_tensor(x, device=dev, dtype=torch.int64)
+             for n, x in batches.items()}
+        if K == 1:
+            cc = torch.tensor(coefs[1:], dtype=torch.float32, device=dev)
+            g[dev.type] = [dist.fused_value_and_grad(
+                p, b, cc, cfg=cfg, fed=fed, attn_impl="pallas")[1]]
+        else:
+            g[dev.type] = [dist._value_and_grad(
+                p, cfg, {n: x[c, 0] for n, x in b.items()}, "pallas")[1]
+                for c in range(C)]
+    for a, b in zip(leaves(g["cuda"]), leaves(g["cpu"])):
         assert float((a.cpu() - b).abs().max()) <= \
             1e-5 * (1 + float(b.abs().max()))

@@ -26,6 +26,7 @@ from repro.data.synthetic import TokenStream as JStream
 from repro.launch import train as j_train
 from repro.models import layers as j_layers
 from repro.models import transformer as j_tm
+from repro_torch._tree import leaves, tree_map
 from repro_torch.configs import base as t_base
 from repro_torch.core import aggregation as t_agg
 from repro_torch.core import distributed as t_dist
@@ -168,11 +169,11 @@ def test_loss_and_grads_match_reference(model, attn, mode):
 
 
 def _grads_chunked(tp, tcfg, tb, attn):
-    live = [t.requires_grad_(True) for t in t_tm._leaves(tp)]
+    live = [t.requires_grad_(True) for t in leaves(tp)]
     loss, metrics = t_tm.loss_fn(tp, tcfg, tb, attn_impl=attn, chunked=True)
     assert float(metrics["aux"]) == 0.0
     it = iter(torch.autograd.grad(loss, live))
-    return loss.detach(), t_tm.tree_map(lambda _: next(it), tp)
+    return loss.detach(), tree_map(lambda _: next(it), tp)
 
 
 def test_params_round_trip(model):
@@ -224,6 +225,39 @@ def test_fused_step_matches_reference(model, case, attn):
     assert int(metrics["num_clients"]) == C
 
 
+@pytest.mark.parametrize("attn", ATTN)
+@pytest.mark.parametrize("case", ["k1_csmaafl", "k1_grad_accum2"])
+def test_fused_grads_match_reference(model, case, attn):
+    """The K=1 step's gradient itself (the folded rows, micro-batches
+    summed), against ``jax.grad`` of the reference's loss on the same
+    rows with weights c_client / tokens_per_client, ≤1e-5·(1+max|g|) per
+    leaf; and the step is exactly one SGD update with that gradient."""
+    tcfg, jcfg, params = model
+    C, K, b, M, coefs = STEP_CASES[case]
+    S = 16
+    batches = _batches(tcfg, C, K, b, S, 8)
+    coefs = np.asarray(coefs, np.float32)
+    flat = {n: x.reshape(C * b, S) for n, x in batches.items()}
+    flat["row_weights"] = np.repeat(coefs[1:], b) / np.float32(b * S)
+
+    def j_loss(p):
+        return j_tm.loss_fn(p, jcfg, jax.tree.map(jnp.asarray, flat),
+                            attn_impl=attn)[0]
+
+    ref_grads = jax.grad(j_loss)(jax.tree.map(jnp.asarray, params))
+    fed = t_base.FederatedConfig(grad_accum=M)
+    p0 = t_tm.params_from_jax(params, tcfg, "cpu")
+    tb = {n: torch.from_numpy(x).long() for n, x in batches.items()}
+    _, grads = t_dist.fused_value_and_grad(
+        p0, tb, torch.from_numpy(coefs[1:]), cfg=tcfg, fed=fed,
+        attn_impl=attn)
+    _assert_trees_close(t_tm.params_to_numpy(grads, tcfg), ref_grads)
+    step = t_dist.make_csmaafl_step(tcfg, fed, attn_impl=attn, device="cpu")
+    new, _ = step(p0, batches, coefs, 1e-2)
+    for a, w, g in zip(leaves(new), leaves(p0), leaves(grads)):
+        assert torch.equal(a, w - 1e-2 * g.float())
+
+
 def test_k1_fast_path_equals_explicit_per_client(model):
     """The reference's invariant, inside the port: the K=1 step equals
     c0·w + Σ_c c_c·(w − lr·∇mean_c) computed client by client."""
@@ -239,13 +273,13 @@ def test_k1_fast_path_equals_explicit_per_client(model):
     for c in range(C):
         tb = {n: torch.from_numpy(x[c, 0]).long() for n, x in batches.items()}
         _, g = t_dist._value_and_grad(p0, tcfg, tb, "auto")
-        locals_.append(t_tm.tree_map(lambda w, gr: w - lr * gr, p0, g))
-    leaves = [t_tm._leaves(p) for p in locals_]
+        locals_.append(tree_map(lambda w, gr: w - lr * gr, p0, g))
+    client_leaves = [leaves(p) for p in locals_]
     ref = [t_agg.weighted_sum_pytrees(
         float(coefs[0]), {"w": w0}, [float(x) for x in coefs[1:]],
-        [{"w": lv[i]} for lv in leaves])["w"]
-        for i, w0 in enumerate(t_tm._leaves(p0))]
-    for a, b in zip(t_tm._leaves(new), ref):
+        [{"w": lv[i]} for lv in client_leaves])["w"]
+        for i, w0 in enumerate(leaves(p0))]
+    for a, b in zip(leaves(new), ref):
         assert float((a - b).abs().max()) <= 2e-5
 
 
@@ -259,14 +293,14 @@ def test_k1_fedavg_coefs_is_plain_sgd_on_weighted_mean(model):
                                 device="cpu")
     new, _ = step(p0, batches, [0.0, 0.5, 0.5], 1e-2)
     live = [t.detach().clone().requires_grad_(True)
-            for t in t_tm._leaves(p0)]
+            for t in leaves(p0)]
     it = iter(live)
-    p = t_tm.tree_map(lambda _: next(it), p0)
+    p = tree_map(lambda _: next(it), p0)
     loss = sum(0.5 * t_tm.loss_fn(
         p, tcfg, {n: torch.from_numpy(x[c, 0]).long()
                   for n, x in batches.items()})[0] for c in range(2))
     grads = torch.autograd.grad(loss, live)
-    for a, w, g in zip(t_tm._leaves(new), live, grads):
+    for a, w, g in zip(leaves(new), live, grads):
         assert float((a - (w.detach() - 1e-2 * g)).abs().max()) <= 2e-5
 
 

@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Three main paths: federated learning (CSMAAFL and its baselines on the
+Four main paths: federated learning (CSMAAFL and its baselines on the
 paper's CNN, every server blend through the weighted-aggregation kernel),
 LM serving (qwen2-0.5b at full width, every prefill attention through the
-flash-attention kernel) and federated LM training (CSMAAFL and FedAvg on
-qwen2-0.5b at full width through the fused step, attention forward and
-backward through the flash kernels, the K=2 blend through the
-weighted-aggregation kernel).  Phases, one JSON line each:
+flash-attention kernel), Mamba2 serving (mamba2-780m at full width, every
+prefill SSD through the SSD chunk-scan kernel) and federated LM training
+(CSMAAFL and FedAvg on qwen2-0.5b at full width through the fused step,
+attention forward and backward through the flash kernels, the K=2 blend
+through the weighted-aggregation kernel).  Phases, one JSON line each:
 
 1.  device   — card name and count, ``nvidia-smi`` name and power limit;
 2.  build    — nvcc builds every kernel from the sources in this checkout
@@ -21,6 +22,10 @@ weighted-aggregation kernel).  Phases, one JSON line each:
 4b. flash_bwd — the dQ and dK/dV kernels against the plain backward, two
                launches bitwise equal, and autograd through
                ``ops.flash_attention`` against the plain backward;
+4c. ssd      — ssd_scan_fwd against the plain chunked op and the
+               sequential recurrence, f32 and bf16 inputs, the reference's
+               SSD_CASES, mamba2-780m's prefill shape and one row of it,
+               zamba2's grouping; two launches bitwise equal;
 5.  reduced  — a narrow-CNN CSMAAFL run on the CPU (plain version) and on
                the card (kernel): final parameters ≤1e-5, times equal;
 6.  reduced_serve — reduced qwen2-0.5b prefill + 8 decode steps on the
@@ -28,12 +33,21 @@ weighted-aggregation kernel).  Phases, one JSON line each:
 6b. reduced_train — reduced qwen2-0.5b fused steps (K=1, grad_accum=2,
                K=2) on the CPU and on the card: parameters and the
                steps' gradients ≤1e-5·(1+max) per leaf;
+6c. reduced_serve_mamba2 — reduced mamba2-780m prefill + 8 decode steps
+               on the CPU and on the card: logits and caches ≤1e-5·(1+max),
+               tokens equal;
 7.  main     — the AFL main path at the paper CNN's full width, M = 100:
                FedAvg, CSMAAFL and the §III-B baseline through ``api.run``;
 8.  serve    — the serving main path at qwen2-0.5b's full width: prefill
                of 4 × 512 tokens (one flash launch per layer), 32 decode
                steps, ``BatchedServer`` over 8 requests; then the same
                prefill through the naive path for comparison;
+8c. serve_mamba2 — the Mamba2 serving main path at mamba2-780m's full
+               width: prefill of 4 × 512 tokens (one SSD launch per
+               layer), 32 decode steps, ``BatchedServer`` over 8 requests
+               (one SSD launch per layer and request), no call of the plain
+               SSD; then a 512-token prefill against a 511-token prefill
+               and one decode step (last logits ≤1e-4·(1+max));
 8b. train    — the training main path at qwen2-0.5b's full width,
                ``run_spmd`` with C = 4 clients × 2 rows × 512 tokens: 8
                CSMAAFL steps, 2 FedAvg steps, 1 step with K = 2 local
@@ -42,8 +56,8 @@ weighted-aggregation kernel).  Phases, one JSON line each:
 9.  timing   — each kernel, its plain version and the one PyTorch call
                computing the same function, timed with CUDA events;
 10. profile  — device busy share and device time by kernel over a short
-               CSMAAFL run, a full-width prefill + decode and a full-width
-               train step.
+               CSMAAFL run, full-width qwen2 and mamba2 prefill + decode and
+               a full-width train step.
 
 Each main path's launch counts are set to 0 just before it and read just
 after.  Then the ``{"kernels": [...]}`` line and, last, the
@@ -85,6 +99,22 @@ FLASH_CASES = [
     (4, 14, 2, 200, 64, 0, 0.0, "bfloat16"),
 ]
 SERVE_B, SERVE_S, SERVE_STEPS = 4, 512, 32
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:81"
+# Bt, L, H, P, G, N, chunk: the reference's SSD_CASES (tests/test_kernels.py),
+# mamba2-780m's prefill shape (4 x 512, 48 heads of P = 64, one group of
+# N = 128, chunk 128), one row of it at L = 128, and zamba2's grouping
+# (G = 2, N = 64); each with f32 and with bf16 x, B, C
+SSD_PREFILL = (SERVE_B, SERVE_S, 48, 64, 1, 128, 128)
+SSD_CASES = [
+    (2, 128, 4, 64, 1, 32, 32),
+    (1, 256, 8, 64, 2, 64, 64),
+    (2, 64, 4, 32, 4, 16, 16),
+    (1, 128, 6, 64, 3, 128, 128),
+    SSD_PREFILL,
+    (1, 128, 48, 64, 1, 128, 128),
+    (2, 256, 16, 64, 2, 64, 128),
+]
 FLASH_BWD_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                     "flash_attention_bwd.cu")
 FLASH_DQ_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:325"
@@ -303,6 +333,62 @@ def flash_bwd_vs_plain(device):
     return cases, worst
 
 
+def _ssd_inputs(case, dtype, gen, device):
+    """x, dt, A, B, C for one SSD case on the card, drawn as the
+    reference's kernel tests draw theirs: dt = softplus(normal)·0.1,
+    A = −exp(0.3·normal); x, B, C in ``dtype``."""
+    import torch
+    import torch.nn.functional as F
+
+    Bt, L, H, P, G, N, _ = case
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=device)
+    x = rnd(Bt, L, H, P).to(dtype)
+    dt = F.softplus(rnd(Bt, L, H)) * 0.1
+    A = -torch.exp(rnd(H) * 0.3)
+    return x, dt, A, rnd(Bt, L, G, N).to(dtype), rnd(Bt, L, G, N).to(dtype)
+
+
+def ssd_vs_plain(device):
+    """ssd_scan_fwd against the plain chunked op (``ssd_chunked``) and the
+    exact sequential recurrence (``ssd_sequential``) on the same inputs,
+    y and the final state.  Tolerance 2e-5·(1+max|ref|) (f32 on every
+    side: only the order of the sums differs); with bf16 x, B, C one bf16
+    ulp of max(|out|, |ref|) on top, elementwise (every side reads the
+    same bf16 values).  A second launch on the same inputs must give the
+    same bits."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_sequential
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_fwd
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    worst, cases = {}, []
+    for case in SSD_CASES:
+        for dtype in ("float32", "bfloat16"):
+            args = _ssd_inputs(case, getattr(torch, dtype), gen, device)
+            y, st = ssd_scan_fwd(*args, chunk=case[6])
+            y2, st2 = ssd_scan_fwd(*args, chunk=case[6])
+            refs = {"chunked": ssd_chunked(*args, chunk=case[6]),
+                    "sequential": ssd_sequential(*args)}
+            torch.cuda.synchronize()
+            rec = {"case": list(case), "dtype": dtype,
+                   "bitwise_repeat": torch.equal(y, y2)
+                   and torch.equal(st, st2)}
+            ok = rec["bitwise_repeat"]
+            for name, (ry, rs) in refs.items():
+                for part, out, ref in (("y", y, ry), ("state", st, rs)):
+                    err, good = _grad_close(out, ref, dtype)
+                    rec[f"{part}_vs_{name}"] = err
+                    ok = ok and good
+                    key = f"{part}/{dtype}"
+                    if name == "chunked":
+                        worst[key] = max(worst.get(key, 0.0), err)
+            rec["ok"] = ok
+            cases.append(rec)
+            check(ok, f"SSD kernel disagrees with plain: {rec}")
+    return cases, worst
+
+
 # ---------------------------------------------------------------------------
 # phases 5 and 7: runs through api.run
 # ---------------------------------------------------------------------------
@@ -420,8 +506,8 @@ def main_path(device, events):
 # phases 6 and 8: LM serving
 # ---------------------------------------------------------------------------
 def _off_zero(tree, gen):
-    """Norm scales and QKV biases moved off zero (in place), so the
-    (1+scale) norms and the bias adds are exercised."""
+    """Norm scales, QKV biases and Mamba2's conv bias moved off zero (in
+    place), so the (1+scale) norms and the bias adds are exercised."""
     import torch
 
     for name, leaf in tree.items():
@@ -430,25 +516,27 @@ def _off_zero(tree, gen):
         elif isinstance(leaf, list):
             for item in leaf:
                 _off_zero(item, gen)
-        elif name in ("scale", "bq", "bk", "bv"):
+        elif name in ("scale", "bq", "bk", "bv", "norm_scale", "conv_b"):
             leaf.add_(0.1 * torch.randn(leaf.shape, generator=gen,
                                         dtype=leaf.dtype))
 
 
-def reduced_serve_cpu_vs_card(device, steps=8):
-    """Reduced qwen2-0.5b with the same port parameters: prefill through
-    the flash path and ``steps`` greedy decode steps on the CPU (plain
-    version) and on the card (kernel).  Logits and caches ≤1e-5·(1+max),
-    slot positions and tokens equal, one launch per layer on the card."""
+def reduced_serve_cpu_vs_card(device, arch="qwen2-0.5b", steps=8):
+    """Reduced ``arch`` (qwen2-0.5b or mamba2-780m) with the same port
+    parameters: prefill (flash path; for Mamba2 every SSD) of 2 × 40
+    tokens and ``steps`` greedy decode steps on the CPU (plain versions)
+    and on the card (kernels).  Logits and float caches ≤1e-5·(1+max),
+    integer caches (slot positions) and tokens equal; on the card one
+    launch of the path's kernel (flash forward, or SSD scan) per layer,
+    none of any other kernel, and none on the CPU."""
     import numpy as np
     import torch
 
-    from repro_torch._tree import tree_map
+    from repro_torch._tree import leaves, tree_map
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.models import transformer as tmod
 
-    cfg = get_config("qwen2-0.5b").reduced()
+    cfg = get_config(arch).reduced()
     p_cpu = tmod.init_params(cfg, torch.Generator().manual_seed(0),
                              device="cpu")
     _off_zero(p_cpu, torch.Generator().manual_seed(1))
@@ -460,10 +548,10 @@ def reduced_serve_cpu_vs_card(device, steps=8):
         params = tree_map(lambda t: t.to(dev), p_cpu)
         cache = tmod.init_cache(cfg, B, S + steps, dtype=torch.float32,
                                 device=dev)
-        before = fa.flash_attention_fwd.launches
+        before = _launch_counts()
         logits, cache = tmod.prefill(params, cfg, {"tokens": tokens.to(dev)},
                                      cache, attn_impl="pallas")
-        launches = fa.flash_attention_fwd.launches - before
+        launches = _since(before)
         outs, toks = [logits.cpu()], []
         for step in range(steps):
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
@@ -477,67 +565,49 @@ def reduced_serve_cpu_vs_card(device, steps=8):
     logit_err = max(float((g - c).abs().max() / (1 + c.abs().max()))
                     for g, c in zip(g_out, c_out))
     cache_err = 0.0
-    for gl, cl in zip(g_cache["dec"]["layers"], c_cache["dec"]["layers"]):
-        check(torch.equal(gl["slot_pos"], cl["slot_pos"]),
-              "reduced serve: slot positions differ")
-        for name in ("k", "v"):
-            cache_err = max(cache_err, float(
-                (gl[name] - cl[name]).abs().max() / (1 + cl[name].abs().max())))
-    fields = {"steps": steps, "logit_rel_err": logit_err,
+    for gl, cl in zip(leaves(g_cache), leaves(c_cache)):
+        if not gl.is_floating_point():
+            check(torch.equal(gl, cl), f"reduced serve {arch}: slot "
+                  f"positions differ")
+            continue
+        cache_err = max(cache_err, float(
+            (gl - cl).abs().max() / (1 + cl.abs().max())))
+    kernel = "ssd_scan" if cfg.ssm is not None else "flash_fwd"
+    want = {k: (cfg.num_layers if k == kernel else 0) for k in g_n}
+    fields = {"arch": arch, "steps": steps, "logit_rel_err": logit_err,
               "cache_rel_err": cache_err, "tol": 1e-5,
               "tokens_equal": all(torch.equal(a, b)
                                   for a, b in zip(g_tok, c_tok)),
-              "card_launches": g_n, "cpu_launches": c_n}
+              "card_launches": g_n[kernel], "cpu_launches": c_n[kernel]}
     check(logit_err <= 1e-5 and cache_err <= 1e-5,
-          f"reduced serve CPU vs card: {fields}")
+          f"reduced serve {arch} CPU vs card: {fields}")
     check(fields["tokens_equal"], f"reduced serve tokens differ: {fields}")
-    check(c_n == 0 and g_n == cfg.num_layers,
-          f"reduced serve launches: {fields}")
+    check(not any(c_n.values()) and g_n == want,
+          f"reduced serve {arch} launches: {g_n}, expected {want}")
     return fields
 
 
-def serve_main_path(device):
-    """The serving main path at qwen2-0.5b's full width, f32 parameters
-    from the port's own seeded init: prefill (flash kernel) of
-    SERVE_B × SERVE_S tokens, SERVE_STEPS greedy decode steps, and the
-    batched server over 8 requests on 4 slots.  The flash launch count is
-    set to 0 just before and read just after.  Then, outside the count,
-    the same prefill through the naive path: last-position logits within
-    1e-4·(1+max) and equal argmax."""
-    import numpy as np
+def _serve_path(cfg, params, prompts, queue, attn_impl="auto"):
+    """One serving main path: prefill of ``prompts`` (SERVE_B × SERVE_S
+    tokens), SERVE_STEPS greedy decode steps, then the batched server over
+    ``queue`` on 4 slots.  Every launch count is set to 0 just before and
+    read after the prefill and after the whole path.  Returns (the
+    prefill's logits, the times and rates, the counts after the prefill,
+    the counts after the path)."""
     import torch
 
-    from repro_torch.configs.base import get_config
-    from repro_torch.kernels.flash_attention import flash_attention as fa
-    from repro_torch.launch.serve import BatchedServer, Request
+    from repro_torch.launch.serve import BatchedServer
     from repro_torch.models import transformer as tmod
 
-    cfg = get_config("qwen2-0.5b")
-    t0 = time.perf_counter()
-    params = tmod.init_params(
-        cfg, torch.Generator(device=device).manual_seed(0), device=device)
-    n_params = tmod.num_params(params)
-    check(n_params == cfg.param_count == 494_032_768,
-          f"qwen2-0.5b has {n_params} parameters")
-    rng = np.random.default_rng(0)
-    prompts = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (SERVE_B, SERVE_S))).to(device)
-    queue = [Request(i, rng.integers(0, cfg.vocab_size, 64)
-                     .astype(np.int32), 16) for i in range(8)]
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
-
-    fa.flash_attention_fwd.launches = 0           # read after the path
+    _zero_launch_counts()
     cache = tmod.init_cache(cfg, SERVE_B, SERVE_S + SERVE_STEPS,
-                            dtype=torch.float32, device=device)
+                            dtype=torch.float32, device=prompts.device)
     t0 = time.perf_counter()
     logits, cache = tmod.prefill(params, cfg, {"tokens": prompts}, cache,
-                                 attn_impl="pallas")
+                                 attn_impl=attn_impl)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    prefill_launches = fa.flash_attention_fwd.launches
-    pallas_last = logits
+    after_prefill, first = _launch_counts(), logits
     t0 = time.perf_counter()
     for step in range(SERVE_STEPS):
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
@@ -547,18 +617,71 @@ def serve_main_path(device):
     decode_s = time.perf_counter() - t0
     check(logits.shape == (SERVE_B, 1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
-          "decode logits are not finite or not (B, 1, V)")
+          f"{cfg.arch_id} decode logits are not finite or not (B, 1, V)")
+    del cache
     server = BatchedServer(cfg, params, slots=4, max_len=64 + 16 + 4)
     t0 = time.perf_counter()
     done = server.run(list(queue))
     torch.cuda.synchronize()
     server_s = time.perf_counter() - t0
-    launches = fa.flash_attention_fwd.launches
-    peak = torch.cuda.max_memory_allocated()
-    check(sorted(r.rid for r in done) == list(range(8))
-          and all(r.done and len(r.generated) == 16 for r in done),
-          "the batched server did not finish every request")
+    check(sorted(r.rid for r in done) == [r.rid for r in queue]
+          and all(r.done and len(r.generated) == r.max_new for r in done),
+          f"the batched {cfg.arch_id} server did not finish every request")
+    rates = {"prefill_s": prefill_s,
+             "prefill_tokens_per_s": SERVE_B * SERVE_S / prefill_s,
+             "decode_s": decode_s,
+             "decode_tokens_per_s": SERVE_B * SERVE_STEPS / decode_s,
+             "server_requests": len(done), "server_s": server_s,
+             "server_tokens_per_s": sum(len(r.generated) for r in done)
+             / server_s}
+    return first, rates, after_prefill, _launch_counts()
 
+
+def _serve_setup(arch, device):
+    """``arch`` at full width with f32 parameters from the port's seeded
+    init on the card, the prefill prompts and a queue of 8 requests of 64
+    tokens (16 to generate each)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import Request
+    from repro_torch.models import transformer as tmod
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = tmod.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    n_params = tmod.num_params(params)
+    check(n_params == cfg.param_count,
+          f"{arch} has {n_params} parameters, not {cfg.param_count}")
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_S))).to(device)
+    queue = [Request(i, rng.integers(0, cfg.vocab_size, 64)
+                     .astype(np.int32), 16) for i in range(8)]
+    torch.cuda.synchronize()
+    rec = {"arch": arch, "params": n_params,
+           "setup_s": time.perf_counter() - t0, "batch": SERVE_B,
+           "prompt": SERVE_S, "decode_steps": SERVE_STEPS}
+    torch.cuda.reset_peak_memory_stats()
+    return cfg, params, prompts, queue, rec
+
+
+def serve_main_path(device):
+    """The serving main path at qwen2-0.5b's full width (``_serve_path``
+    with the flash prefill): one flash launch per layer.  Then, outside
+    the count, the same prefill through the naive path: last-position
+    logits within 1e-4·(1+max) and equal argmax."""
+    import torch
+
+    from repro_torch.models import transformer as tmod
+
+    cfg, params, prompts, queue, rec = _serve_setup("qwen2-0.5b", device)
+    check(rec["params"] == 494_032_768, f"qwen2-0.5b: {rec}")
+    pallas_last, rates, pre, post = _serve_path(cfg, params, prompts, queue,
+                                                attn_impl="pallas")
+    peak = torch.cuda.max_memory_allocated()
     naive, _ = tmod.prefill(params, cfg, {"tokens": prompts},
                             tmod.init_cache(cfg, SERVE_B, SERVE_S,
                                             dtype=torch.float32,
@@ -568,23 +691,93 @@ def serve_main_path(device):
     tol = 1e-4 * (1.0 + float(naive.abs().max()))
     same = torch.equal(torch.argmax(pallas_last[:, -1], -1),
                        torch.argmax(naive[:, -1], -1))
-    rec = {"arch": cfg.arch_id, "params": n_params, "setup_s": setup_s,
-           "batch": SERVE_B, "prompt": SERVE_S, "decode_steps": SERVE_STEPS,
-           "prefill_s": prefill_s,
-           "prefill_tokens_per_s": SERVE_B * SERVE_S / prefill_s,
-           "decode_s": decode_s,
-           "decode_tokens_per_s": SERVE_B * SERVE_STEPS / decode_s,
-           "server_requests": len(done), "server_s": server_s,
-           "server_tokens_per_s": sum(len(r.generated) for r in done)
-           / server_s,
-           "max_memory_allocated": peak,
-           "prefill_launches": prefill_launches, "launches": launches,
-           "pallas_vs_naive_max_abs": err, "tol": tol,
-           "argmax_equal": same}
-    check(prefill_launches == cfg.num_layers and launches == cfg.num_layers,
-          f"flash launches: {rec}")
+    rec.update(rates)
+    rec.update({"max_memory_allocated": peak,
+                "prefill_launches": pre["flash_fwd"],
+                "launches": post["flash_fwd"],
+                "pallas_vs_naive_max_abs": err, "tol": tol,
+                "argmax_equal": same})
+    want = {k: 0 for k in post}
+    want["flash_fwd"] = cfg.num_layers
+    check(pre == want and post == want, f"flash launches: {rec}")
     check(err <= tol and same,
           f"pallas vs naive prefill: {rec}")
+    return rec, (cfg, params, prompts)
+
+
+def _count_plain_ssd():
+    """Route every module's ``ssd_chunked`` through a counter; returns
+    (calls, undo)."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as wrapper
+    from repro_torch.models import mamba2
+
+    plain = mamba2.ssd_chunked
+    calls = [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return plain(*args, **kw)
+
+    mods = (mamba2, ref, wrapper, ops)
+    for mod in mods:
+        mod.ssd_chunked = counted
+
+    def undo():
+        for mod in mods:
+            mod.ssd_chunked = plain
+    return calls, undo
+
+
+def serve_mamba2_main_path(device):
+    """The Mamba2 serving main path at mamba2-780m's full width
+    (``_serve_path``): one SSD launch per layer and prefill, y and the
+    state from one pass, so 48 for the 4 × 512 prefill and 48 for each of
+    the server's 8 one-row prefills; every module's plain
+    ``ssd_chunked`` is counted over the same span and must not be called.
+    Then, outside the count, a SERVE_S-token prefill against a
+    (SERVE_S − 1)-token prefill (padded to the chunk) and one decode step
+    of the last token: the last logits ≤1e-4·(1+max) and equal argmax,
+    which holds the kernel's final state against the decode recurrence."""
+    import torch
+
+    from repro_torch.models import transformer as tmod
+
+    cfg, params, prompts, queue, rec = _serve_setup("mamba2-780m", device)
+    check(rec["params"] == 780_148_992, f"mamba2-780m: {rec}")
+    plain_calls, undo = _count_plain_ssd()
+    try:
+        _, rates, pre, post = _serve_path(cfg, params, prompts, queue)
+        plain = plain_calls[0]
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated()
+
+    def cache(S):
+        return tmod.init_cache(cfg, SERVE_B, S, dtype=torch.float32,
+                               device=device)
+
+    full, _ = tmod.prefill(params, cfg, {"tokens": prompts}, cache(SERVE_S))
+    _, part = tmod.prefill(params, cfg, {"tokens": prompts[:, :-1]},
+                           cache(SERVE_S))
+    stepped, _ = tmod.decode_step(params, cfg, prompts[:, -1:], part,
+                                  SERVE_S - 1)
+    torch.cuda.synchronize()
+    err = float((full - stepped).abs().max())
+    tol = 1e-4 * (1.0 + float(full.abs().max()))
+    same = torch.equal(full[:, -1].argmax(-1), stepped[:, -1].argmax(-1))
+    rec.update(rates)
+    rec.update({"max_memory_allocated": peak,
+                "prefill_launches": pre["ssd_scan"], "launches": post,
+                "plain_ssd_calls": plain,
+                "prefill_vs_decode_max_abs": err, "tol": tol,
+                "argmax_equal": same})
+    want = {k: 0 for k in post}
+    want["ssd_scan"] = cfg.num_layers * (1 + len(queue))
+    check(pre["ssd_scan"] == cfg.num_layers and post == want,
+          f"mamba2 launches: {rec}, expected {want}")
+    check(plain == 0, f"the plain SSD ran on the serving path: {rec}")
+    check(err <= tol and same, f"mamba2 prefill vs decode: {rec}")
     return rec, (cfg, params, prompts)
 
 
@@ -593,20 +786,24 @@ def serve_main_path(device):
 # ---------------------------------------------------------------------------
 def _launch_counts():
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
     from repro_torch.kernels.weighted_agg import weighted_agg as wa
     return {"flash_fwd": fa.flash_attention_fwd.launches,
             "flash_bwd_dq": fa.flash_attention_bwd.launches_dq,
             "flash_bwd_dkv": fa.flash_attention_bwd.launches_dkv,
-            "weighted_agg": wa.weighted_agg_flat2d.launches}
+            "weighted_agg": wa.weighted_agg_flat2d.launches,
+            "ssd_scan": ssd.ssd_scan_fwd.launches}
 
 
 def _zero_launch_counts():
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
     from repro_torch.kernels.weighted_agg import weighted_agg as wa
     fa.flash_attention_fwd.launches = 0
     fa.flash_attention_bwd.launches_dq = 0
     fa.flash_attention_bwd.launches_dkv = 0
     wa.weighted_agg_flat2d.launches = 0
+    ssd.ssd_scan_fwd.launches = 0
 
 
 def _since(before):
@@ -695,7 +892,7 @@ def reduced_train_cpu_vs_card(device):
         want = {"flash_fwd": cfg.num_layers * grads,
                 "flash_bwd_dq": cfg.num_layers * grads,
                 "flash_bwd_dkv": cfg.num_layers * grads,
-                "weighted_agg": n_leaves if K > 1 else 0}
+                "weighted_agg": n_leaves if K > 1 else 0, "ssd_scan": 0}
         rec = {"param_rel_err": _tree_rel_err(g_new, c_new),
                "grad_rel_err": _tree_rel_err(g_g, c_g), "tol": 1e-5,
                "loss_cpu": c_loss, "loss_card": g_loss,
@@ -775,7 +972,8 @@ def train_main_path(device):
     grads = 8 + 2 + TRAIN_C * 2       # gradient computations on the path
     fwd = 2 if cfg.remat else 1       # remat recomputes each forward
     want = {"flash_fwd": fwd * L * grads, "flash_bwd_dq": L * grads,
-            "flash_bwd_dkv": L * grads, "weighted_agg": n_leaves}
+            "flash_bwd_dkv": L * grads, "weighted_agg": n_leaves,
+            "ssd_scan": 0}
     check(launches == want, f"train launches {launches}, expected {want}")
     del params, run
 
@@ -877,11 +1075,13 @@ def profile_run(task, fleet, plane, p0, events):
             "top_kernels": top_kernels(by_name)}
 
 
-def profile_serve(state, decode_steps=8):
+def profile_serve(state, kernel="flash_fwd", label="flash",
+                  decode_steps=8):
     """Device busy share and device time by kernel over one full-width
-    prefill (flash kernel) of the serving batch, and over
+    prefill of the serving batch (through the kernel whose name holds
+    ``kernel``: the flash forward, or the SSD scan), and over
     ``decode_steps`` decode steps after it, from two torch.profiler
-    traces."""
+    traces; the kernel's device time, launches and share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -908,12 +1108,17 @@ def profile_serve(state, decode_steps=8):
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         spans, busy, by_name = device_spans(prof)
-        flash = [v for k, v in by_name.items() if "flash_fwd" in k]
+        hit = [v for k, v in by_name.items() if kernel in k]
+        device_us = sum(v[0] for v in by_name.values())
+        steps = decode_steps if part == "decode" else 1
         out[part] = {"wall_ms": wall_us / 1e3,
                      "device_busy_share": busy / wall_us,
                      "device_kernels": len(spans),
-                     "flash_device_us": sum(v[0] for v in flash),
-                     "flash_launches": sum(v[1] for v in flash),
+                     "kernels_per_step": len(spans) / steps,
+                     f"{label}_device_us": sum(v[0] for v in hit),
+                     f"{label}_launches": sum(v[1] for v in hit),
+                     f"{label}_share_of_device_time":
+                         sum(v[0] for v in hit) / device_us,
                      "top_kernels": top_kernels(by_name)}
     out["decode_steps"] = decode_steps
     return out
@@ -1196,6 +1401,57 @@ def flash_bwd_timing(device, nsets=3, launches=10):
     return out
 
 
+def ssd_bound(Bt, L, H, P, G, N, Q):
+    """Least time of the SSD scan on the card: its least work at the f32
+    rate outside the tensor cores (67 TFLOP/s) against its bytes at 3.35
+    TB/s.  Work per chunk of Q: C·Bᵀ once per (batch, group), the causal
+    half 2·Q(Q+1)/2·N; per (batch, head) the causal half of the intra
+    product 2·Q(Q+1)/2·P, the inter output 2·Q·P·N and the state update
+    2·Q·P·N.  Bytes: x, dt, A, B and C read once, y and the final state
+    written once (f32)."""
+    nc = L // Q
+    flops = Bt * nc * (G * Q * (Q + 1) * N
+                       + H * (Q * (Q + 1) * P + 4 * Q * P * N))
+    moved = 4 * (2 * Bt * L * H * P + Bt * L * H + H + 2 * Bt * L * G * N
+                 + Bt * H * P * N)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", moved, flops)
+
+
+def ssd_timing(device, nsets=3, launches=12):
+    """The SSD kernel at the Mamba2 serving path's prefill shape
+    (mamba2-780m, 4 × 512 tokens, 48 heads of P = 64, one group of
+    N = 128, chunk 128, f32, in the model's (Bt, L, H, P) layout) and its
+    plain chunked op, each over a CUDA graph with input sets rotating
+    beyond the 50 MB L2.  No single PyTorch call computes the SSD scan,
+    so there is no library time."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan_fwd
+
+    Q = SSD_PREFILL[6]
+    gen = torch.Generator(device=device).manual_seed(7)
+    sets = [_ssd_inputs(SSD_PREFILL, torch.float32, gen, device)
+            for _ in range(nsets)]
+    rec = {"ms": time_graph(lambda a: ssd_scan_fwd(*a, chunk=Q), sets,
+                            launches),
+           "plain_ms": time_graph(lambda a: ssd_chunked(*a, chunk=Q), sets,
+                                  3),
+           "library_ms": None}
+    b, by, moved, flops = ssd_bound(*SSD_PREFILL)
+    Bt, L, H, P, G, N, _ = SSD_PREFILL
+    rec.update({"Bt": Bt, "L": L, "H": H, "P": P, "G": G, "N": N, "Q": Q,
+                "bound_ms": b, "bound_by": by, "bytes": moved,
+                "flops": flops, "input_sets": nsets,
+                "launches_per_graph": launches,
+                "achieved_TFLOPs": flops / (rec["ms"] * 1e-3) / 1e12})
+    emit("timing", kernel="ssd_scan_fwd", **rec)
+    return rec
+
+
 def main():
     import torch
 
@@ -1227,10 +1483,14 @@ def main():
     emit("flash", cases=flash_cases, max_abs_err=flash_worst)
     bwd_cases, bwd_worst = flash_bwd_vs_plain(device)
     emit("flash_bwd", cases=bwd_cases, max_abs_err=bwd_worst)
+    ssd_cases, ssd_worst = ssd_vs_plain(device)
+    emit("ssd", cases=ssd_cases, max_abs_err=ssd_worst)
 
     emit("reduced", **reduced_cpu_vs_card(device))
     emit("reduced_serve", **reduced_serve_cpu_vs_card(device))
     emit("reduced_train", **reduced_train_cpu_vs_card(device))
+    emit("reduced_serve_mamba2",
+         **reduced_serve_cpu_vs_card(device, arch="mamba2-780m"))
 
     events = 200
     main_runs, setup_s, total_launches, state = main_path(device, events)
@@ -1238,13 +1498,19 @@ def main():
     serve, serve_state = serve_main_path(device)
     emit("serve", **serve)
     emit("profile_serve", **profile_serve(serve_state))
-    del serve_state              # the train path's peak memory is its own
+    del serve_state              # each path's peak memory is its own
+    mamba, mamba_state = serve_mamba2_main_path(device)
+    emit("serve_mamba2", **mamba)
+    emit("profile_serve_mamba2",
+         **profile_serve(mamba_state, kernel="ssd_scan", label="ssd"))
+    del mamba_state
     train, train_state = train_main_path(device)
     emit("train", **train)
 
     timing = kernel_timing(device)
     flash_t = flash_timing(device)
     bwd_t = flash_bwd_timing(device)
+    ssd_t = ssd_timing(device)
 
     emit("profile", **profile_run(*state, events=20))
     emit("profile_train", **profile_train(train_state))
@@ -1291,6 +1557,16 @@ def main():
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    kernels.append({
+        "name": "ssd_scan_fwd (mamba2-780m prefill, f32; timed at the "
+                "4 × 512 prefill shape)",
+        "route": "cuda", "source": SSD_SOURCE, "replaces": SSD_REPLACES,
+        "launches": mamba["launches"]["ssd_scan"],
+        "max_abs_err": max(ssd_worst["y/float32"],
+                           ssd_worst["state/float32"]),
+        "ms": ssd_t["ms"], "plain_ms": ssd_t["plain_ms"],
+        "bound_ms": ssd_t["bound_ms"], "bound_by": ssd_t["bound_by"],
+        "library_ms": ssd_t["library_ms"]})
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of a main path was never launched")
     print(smi, flush=True)

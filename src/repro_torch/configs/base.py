@@ -2,9 +2,10 @@
 
 Every architecture is a frozen :class:`ModelConfig`; ``reduced()`` gives
 the CPU-smoke variant of the same family (≤2 layers, d_model ≤256,
-≤4 experts, vocab ≤512), field for field the reference's.  ``MoEConfig``
-and ``SSMConfig`` are carried as data only: the port's models raise on
-them until the MoE and Mamba2 slices (ROADMAP Queue 1 #13).
+≤4 experts, vocab ≤512), field for field the reference's.  ``SSMConfig``
+sizes the Mamba2 blocks (``ModelConfig.d_inner``, ``ssm_heads``);
+``MoEConfig`` is carried as data only: the port's models raise on it
+until the MoE slice (ROADMAP Queue 1 #13c).
 """
 from __future__ import annotations
 
@@ -45,7 +46,7 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class SSMConfig:
-    """Mamba2 (SSD) block configuration (data only in the port)."""
+    """Mamba2 (SSD) block configuration."""
     d_state: int = 128
     d_conv: int = 4
     expand: int = 2
@@ -102,6 +103,16 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim else \
             self.d_model // self.num_heads
+
+    @property
+    def d_inner(self) -> int:
+        assert self.ssm is not None
+        return self.ssm.expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        assert self.ssm is not None
+        return self.d_inner // self.ssm.head_dim
 
     @property
     def block_pattern(self) -> Tuple[str, ...]:
@@ -193,8 +204,8 @@ def _mlp_params(cfg: ModelConfig, d_ff: int) -> int:
 
 def _mamba_params(cfg: ModelConfig) -> int:
     s = cfg.ssm
-    d_in = s.expand * cfg.d_model
-    nh = d_in // s.head_dim
+    d_in = cfg.d_inner
+    nh = cfg.ssm_heads
     conv_dim = d_in + 2 * s.n_groups * s.d_state
     in_proj = cfg.d_model * (2 * d_in + 2 * s.n_groups * s.d_state + nh)
     conv = conv_dim * s.d_conv + conv_dim
@@ -273,7 +284,7 @@ class FederatedConfig:
 _REGISTRY: Dict[str, ModelConfig] = {}
 
 # config modules of the port, imported on first lookup
-_ARCH_MODULES = ("qwen2_0_5b",)
+_ARCH_MODULES = ("mamba2_780m", "qwen2_0_5b")
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

@@ -28,6 +28,7 @@ SOURCES: Dict[str, Path] = {
                         / "flash_attention.cu"),
     "flash_attention_bwd": (_HERE / "flash_attention" / "csrc"
                             / "flash_attention_bwd.cu"),
+    "ssd_scan": _HERE / "ssd_scan" / "csrc" / "ssd_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -7,9 +7,14 @@ step by step together; finished slots are refilled from the queue.  It
 keeps the reference's simplifications: aligned positions (every slot
 decodes at the largest slot position) and ``_splice_batch``'s leaf rule,
 and it prefills with the reference's default ``attn_impl`` ("auto").
-Runs where the parameters live, under ``torch.inference_mode()``.
+It serves the dense decoder (qwen2-0.5b, KV caches) and Mamba2
+(mamba2-780m): there each slot's cache is the (1, d_conv−1, conv_dim)
+conv state and the (1, H, P, N) SSM state of every layer, which the
+splice rule places at the slot like a KV row, and every prefill's SSD
+goes through the SSD kernel on the card.  Runs where the parameters
+live, under ``torch.inference_mode()``.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
         --reduced --requests 12 --batch 4 --gen-tokens 16
 """
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Transformer block construction and application, dense part: twin of
+"""Transformer and Mamba2 block construction and application: twin of
 ``repro/models/blocks.py``.
 
 The reference groups layers into ``n_full`` periods of
@@ -8,9 +8,13 @@ layer, in layer order, under ``"layers"``, and loops over them in
 Python; ``stack_layout`` is kept for converting the reference's stacked
 parameters (``transformer.params_from_jax``).  Sharding constraints have
 no counterpart on one card.  ``cfg.remat`` checkpoints each layer while
-grad is on (``stack_forward``).  MAMBA blocks and MoE raise where they would
+grad is on (``stack_forward``).  MAMBA blocks run in the SSM family
+(mamba2-780m); the hybrid family (zamba2) and MoE raise where they would
 be built (``block_init``, ``block_init_cache``) until their slices
-(ROADMAP Queue 1 #13c, #13d).
+(ROADMAP Queue 1 #13d, #13c).  A MAMBA block's prefill runs its
+projection, conv and SSD once and takes y and both caches from that pass
+(the reference runs them a second time for the caches,
+``_mamba_prefill_state``).
 """
 from __future__ import annotations
 
@@ -19,20 +23,21 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN_LOCAL, MAMBA, ModelConfig
+from repro_torch.configs.base import ATTN_LOCAL, MAMBA, SSM, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2
 from repro_torch.models.layers import mlp, mlp_init, rmsnorm, rmsnorm_init
 
 Params = Dict[str, Any]
-MAMBA_TODO = ("Mamba2 blocks are not ported yet (ROADMAP Queue 1 #13d, "
-              "with the SSD kernel, Queue 2 #5)")
+HYBRID_TODO = ("Mamba2 blocks beside attention blocks (the hybrid family) "
+               "are not ported yet (ROADMAP Queue 1 #13d (zamba2))")
 MOE_TODO = "MoE blocks are not ported yet (ROADMAP Queue 1 #13c)"
 
 
 def check_kind(kind: str, cfg: ModelConfig) -> None:
     """Raise for a block the port does not have yet."""
-    if kind == MAMBA:
-        raise NotImplementedError(MAMBA_TODO)
+    if kind == MAMBA and cfg.family != SSM:
+        raise NotImplementedError(HYBRID_TODO)
     if cfg.moe is not None:
         raise NotImplementedError(MOE_TODO)
 
@@ -44,6 +49,9 @@ def block_init(gen: torch.Generator, kind: str, cfg: ModelConfig, *,
                dtype=torch.float32) -> Params:
     check_kind(kind, cfg)
     dev = gen.device
+    if kind == MAMBA:
+        return {"norm": rmsnorm_init(cfg.d_model, dev),
+                "mixer": mamba2.mamba2_init(gen, cfg, dtype=dtype)}
     p = {"norm1": rmsnorm_init(cfg.d_model, dev),
          "attn": attn.attention_init(gen, cfg, dtype=dtype),
          "norm2": rmsnorm_init(cfg.d_model, dev)}
@@ -77,8 +85,11 @@ def block_forward(params: Params, x: torch.Tensor, kind: str,
                   positions: Optional[torch.Tensor] = None,
                   attn_impl: str = "auto"
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y, aux_loss); aux is 0 for dense blocks."""
+    """Returns (y, aux_loss); aux is 0 for dense and Mamba2 blocks."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == MAMBA:
+        h = rmsnorm(params["norm"], x, cfg.norm_eps)
+        return x + mamba2.mamba2_forward(params["mixer"], h, cfg), aux
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     h = attn.attention_forward(params["attn"], h, cfg,
                                window=_block_window(kind, cfg),
@@ -92,6 +103,8 @@ def block_forward(params: Params, x: torch.Tensor, kind: str,
 def block_init_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
                      dtype=torch.bfloat16, device=None) -> Params:
     check_kind(kind, cfg)
+    if kind == MAMBA:
+        return mamba2.init_mamba_cache(cfg, batch, dtype, device)
     return attn.init_kv_cache(cfg, batch, max_len, _block_window(kind, cfg),
                               dtype, device)
 
@@ -99,6 +112,10 @@ def block_init_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
 def block_decode(params: Params, x: torch.Tensor, cache: Params, kind: str,
                  cfg: ModelConfig, *, pos: int
                  ) -> Tuple[torch.Tensor, Params]:
+    if kind == MAMBA:
+        h = rmsnorm(params["norm"], x, cfg.norm_eps)
+        y, cache = mamba2.mamba2_decode(params["mixer"], h, cache, cfg)
+        return x + y, cache
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     h, new_cache = attn.decode_attention(params["attn"], h, cache, cfg,
                                          pos=pos,
@@ -167,10 +184,14 @@ def stack_decode(params: Params, x: torch.Tensor, cache: Params,
 def stack_prefill(params: Params, x: torch.Tensor, cfg: ModelConfig,
                   cache: Params, *, attn_impl: str = "auto"
                   ) -> Tuple[torch.Tensor, Params]:
-    """Full-sequence forward that also fills the KV caches (prefill), in
-    place; ``cache`` is returned."""
+    """Full-sequence forward that also fills the KV caches and the Mamba2
+    conv and SSM states (prefill), in place; ``cache`` is returned."""
     positions = torch.arange(x.shape[1], device=x.device)
     for p, c, kind in zip(params["layers"], cache["layers"], cfg.blocks):
+        if kind == MAMBA:
+            hn = rmsnorm(p["norm"], x, cfg.norm_eps)
+            x = x + mamba2.mamba2_forward(p["mixer"], hn, cfg, cache=c)
+            continue
         hn = rmsnorm(p["norm1"], x, cfg.norm_eps)
         out, (k_new, v_new) = attn.attention_forward(
             p["attn"], hn, cfg, window=_block_window(kind, cfg),

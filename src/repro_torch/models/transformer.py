@@ -1,5 +1,5 @@
-"""Top-level model: the dense decoder-only LM.  Twin of
-``repro/models/transformer.py`` for the DENSE family.
+"""Top-level model: the decoder-only LM.  Twin of
+``repro/models/transformer.py`` for the DENSE and SSM (Mamba2) families.
 
 Public API:
   init_params(cfg, gen, device=None)          -> params
@@ -15,11 +15,15 @@ Public API:
 ``"labels"`` (B, S) and optionally ``"row_weights"`` (B,) or
 ``"loss_mask"`` (B, S).  Parameters follow the
 reference's names and shapes, except that the stack holds one dict per
-layer (``params["stack"]["layers"]``); ``params_from_jax`` unstacks the
-reference's scanned periods.  Parameters live on the card unless
+layer (``params["stack"]["layers"]``); ``params_from_jax`` and
+``caches_from_jax`` unstack the reference's scanned periods (attention
+or Mamba2 blocks alike), ``params_to_numpy`` and ``caches_to_numpy``
+restack them.  A Mamba2 layer's cache is its conv and SSM state
+(``models.mamba2.init_mamba_cache``).  Parameters live on the card unless
 ``init_params`` is given ``device="cpu"``; prefill and decode run where
-the parameters are, under ``torch.inference_mode()``.  The encoder-decoder and VLM families raise
-until their slice (ROADMAP Queue 1 #13e).
+the parameters are, under ``torch.inference_mode()``.  The hybrid
+family (zamba2) and MoE raise until their slices (ROADMAP Queue 1 #13d,
+#13c), the encoder-decoder and VLM families until theirs (#13e).
 """
 from __future__ import annotations
 
@@ -45,7 +49,7 @@ def _check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"the {cfg.family} family is not ported yet (ROADMAP Queue 1 "
             f"#13e)")
-    for kind in set(cfg.blocks):      # MoE and Mamba2 blocks raise
+    for kind in set(cfg.blocks):      # MoE and hybrid Mamba2 blocks raise
         blk.check_kind(kind, cfg)
 
 
@@ -176,7 +180,8 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device: DeviceLike = None) -> Params:
-    """KV caches of every layer; on the card unless ``device`` says."""
+    """KV caches (attention) or conv and SSM states (Mamba2) of every
+    layer; on the card unless ``device`` says."""
     _check_family(cfg)
     return {"dec": blk.stack_init_cache(cfg, batch, max_len, dtype,
                                         resolve_device(device))}

@@ -13,6 +13,10 @@ the parameters.  Flash attention: the reference's f32 FA bound
 2e-5·(1+max|ref|), bf16 one bf16 ulp on top of it (both sides compute
 in f32 and round once), the f32 log-sum-exp 2e-5·(1+max|lse|);
 reduced qwen2-0.5b prefill + decode CPU vs card ≤1e-5·(1+max|ref|).
+SSD scan: the kernel against the plain chunked op and the sequential
+recurrence 2e-5·(1+max|ref|) (bf16 inputs: one bf16 ulp on top), two
+launches bitwise equal; reduced mamba2-780m prefill + decode CPU vs card
+≤1e-5·(1+max|ref|), tokens equal.
 Flash backward: the dQ and dK/dV kernels against the plain backward at
 the forward's bounds, and two launches bitwise equal; reduced qwen2-0.5b
 fused steps CPU vs card ≤1e-5·(1+max|ref|) per parameter leaf and per
@@ -36,6 +40,9 @@ from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_sequential
 from repro_torch.kernels.weighted_agg import weighted_agg as wa
 from repro_torch.kernels.weighted_agg.ref import weighted_agg_ref
 from repro_torch.models import cnn
@@ -260,10 +267,16 @@ def test_init_params_lands_on_the_card(cuda):
             at = bad.reshape(-1).nonzero().reshape(-1)
             third = leaves(tmod.init_params(
                 cfg, torch.Generator().manual_seed(0), device="cpu"))[i]
+            # ATen's elementwise loops split a tensor into at most
+            # get_num_threads() chunks of at least 32,768 elements
+            threads = torch.get_num_threads()
+            chunks = max(1, min(threads, -(-b.numel() // 32768)))
             pytest.fail(
                 f"leaf {i} {tuple(b.shape)}: {at.numel()} of {b.numel()} "
                 f"elements differ, flat indices {int(at[0])}..{int(at[-1])}"
-                f", max |Δ| {float((back - b).abs().max())}; a third CPU "
+                f", max |Δ| {float((back - b).abs().max())}; intra-op "
+                f"threads {threads}, split into {chunks} chunks of "
+                f"{-(-b.numel() // chunks)}; a third CPU "
                 f"draw equals the card's: {torch.equal(third, back)}, the "
                 f"CPU one: {torch.equal(third, b)}; a second copy back "
                 f"equals the first: {torch.equal(a.cpu(), back)}; the CPU "
@@ -587,3 +600,195 @@ def test_fused_step_on_card_matches_cpu(cuda, C, K, rows, M, coefs):
     for a, b in zip(leaves(g["cuda"]), leaves(g["cpu"])):
         assert float((a.cpu() - b).abs().max()) <= \
             1e-5 * (1 + float(b.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# the SSD chunk scan and Mamba2 serving
+# ---------------------------------------------------------------------------
+SSD_CASES = [
+    # Bt, L, H, P, G, N, chunk: the reference's SSD_CASES
+    # (tests/test_kernels.py), one row of mamba2-780m's heads at L = 128
+    # and zamba2's grouping (G = 2, N = 64)
+    (2, 128, 4, 64, 1, 32, 32),
+    (1, 256, 8, 64, 2, 64, 64),
+    (2, 64, 4, 32, 4, 16, 16),
+    (1, 128, 6, 64, 3, 128, 128),
+    (1, 128, 48, 64, 1, 128, 128),
+    (2, 256, 8, 64, 2, 64, 128),
+]
+
+
+def _ssd_inputs(Bt, L, H, P, G, N, dtype, device, seed):
+    """x, dt, A, B, C on the card: dt = softplus(normal)·0.1 and
+    A = −exp(0.3·normal), as the reference's kernel tests draw them."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=device)
+    x = rnd(Bt, L, H, P).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(Bt, L, H)) * 0.1
+    A = -torch.exp(rnd(H) * 0.3)
+    return x, dt, A, rnd(Bt, L, G, N).to(dtype), rnd(Bt, L, G, N).to(dtype)
+
+
+def _assert_ssd_close(out, ref, bf16):
+    """2e-5·(1+max|ref|); with bf16 inputs one bf16 ulp of the result on
+    top (both sides read the same bf16 values and compute in f32)."""
+    diff = (out - ref).abs()
+    tol = 2e-5 * (1.0 + float(ref.abs().max()))
+    if bf16:
+        mag = torch.maximum(out.abs(), ref.abs())
+        _, e = torch.frexp(mag.clamp_min(2.0 ** -126))
+        tol = torch.ldexp(torch.ones_like(mag), e - 8) + tol
+        assert bool((diff <= tol).all())
+    else:
+        assert float(diff.max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Bt,L,H,P,G,N,chunk", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda, Bt, L, H, P, G, N, chunk, dtype):
+    """The kernel against the plain chunked op and the sequential
+    recurrence on the same inputs; a second launch gives the same bits."""
+    args = _ssd_inputs(Bt, L, H, P, G, N, getattr(torch, dtype), cuda,
+                       L + H + N)
+    before = ssd.ssd_scan_fwd.launches
+    y, s = ssd.ssd_scan_fwd(*args, chunk=chunk)
+    y2, s2 = ssd.ssd_scan_fwd(*args, chunk=chunk)
+    plain = ssd_chunked(*args, chunk=chunk)
+    seq = ssd_sequential(*args)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_fwd.launches == before + 2
+    assert y.shape == (Bt, L, H, P) and s.shape == (Bt, H, P, N)
+    assert y.dtype == s.dtype == torch.float32
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    for ry, rs in (plain, seq):
+        _assert_ssd_close(y, ry, dtype == "bfloat16")
+        _assert_ssd_close(s, rs, dtype == "bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Bt,L,H,G,N,chunk", [(3, 96, 5, 1, 32, 32),
+                                              (1, 64, 6, 3, 128, 64),
+                                              (3, 128, 5, 5, 16, 128)])
+def test_ssd_kernel_writes_only_its_outputs(cuda, Bt, L, H, G, N, chunk):
+    """The kernel launched into y (in a (Bt, L, H, P) layout padded along
+    the heads) and a state that sit between NaN guards of a whole chunk
+    of rows, from non-contiguous inputs (x, B and C column slices of one
+    buffer, as the model's conv output, dt a transposed view): no guard
+    element changes, every output element is written, the inputs are
+    left as they were, and the results equal the wrapper's bits."""
+    P = 64
+    gen = torch.Generator(device=cuda).manual_seed(Bt * L + H)
+    buf = torch.randn(Bt, L, H * P + 2 * G * N + 7, generator=gen,
+                      device=cuda)
+    x = buf[..., :H * P].view(Bt, L, H, P)
+    Bm = buf[..., H * P:H * P + G * N].view(Bt, L, G, N)
+    Cm = buf[..., H * P + G * N:H * P + 2 * G * N].view(Bt, L, G, N)
+    dt = (torch.rand(Bt, H, L, generator=gen, device=cuda) * 0.1
+          ).transpose(1, 2)
+    A = -torch.rand(H, generator=gen, device=cuda) - 0.5
+    assert not x.is_contiguous() and dt.stride(2) != 1
+    want_y, want_s = ssd.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+    inputs = [t.clone() for t in (buf, dt, A)]
+    pad = chunk * (H + 1) * P + 64
+    y_buf = torch.full((2 * pad + Bt * L * (H + 1) * P,), float("nan"),
+                       device=cuda)
+    y = y_buf[pad:pad + Bt * L * (H + 1) * P].view(Bt, L, H + 1, P)[:, :, :H]
+    s_pad = P * N + 64
+    s_buf = torch.full((2 * s_pad + Bt * H * P * N,), float("nan"),
+                       device=cuda)
+    s = s_buf[s_pad:s_pad + Bt * H * P * N].view(Bt, H, P, N)
+    ssd._launch(x, dt, A, Bm, Cm, y, s, chunk)
+    torch.cuda.synchronize()
+    assert bool(y_buf[:pad].isnan().all()) and \
+        bool(y_buf[-pad:].isnan().all()), "the kernel wrote outside y"
+    assert bool(y_buf[pad:-pad].view(Bt, L, H + 1, P)[:, :, H].isnan()
+                .all()), "the kernel wrote into y's padding"
+    _assert_written_in_bounds(s, s_buf, s_pad)
+    assert not bool(y.isnan().any()), "the kernel left y unwritten"
+    assert torch.equal(y, want_y) and torch.equal(s, want_s)
+    for t, before in zip((buf, dt, A), inputs):
+        assert torch.equal(t, before)
+
+
+@pytest.mark.gpu
+def test_ssd_raises_on_the_card(cuda):
+    """No graph, no fall-back: a requires-grad input raises, a library
+    that cannot load raises, an unbuilt shape raises, nothing counted;
+    ``ops.ssd`` is the differentiable path (kernel forward, plain
+    backward)."""
+    args = _ssd_inputs(1, 64, 4, 32, 2, 16, torch.float32, cuda, 0)
+    r = args[0].clone().requires_grad_(True)
+    before = ssd.ssd_scan_fwd.launches
+    with pytest.raises(RuntimeError, match="ops.ssd"):
+        ssd.ssd_scan_fwd(r, *args[1:], chunk=32)
+    with pytest.raises(ValueError, match="built for chunk in"):
+        ssd.ssd_scan_fwd(*args, chunk=8)
+    assert ssd.ssd_scan_fwd.launches == before
+    y, s = ssd_ops.ssd(r, *args[1:], chunk=32)
+    (y.sum() + s.sum()).backward()
+    assert ssd.ssd_scan_fwd.launches == before + 1
+    leaf = args[0].clone().requires_grad_(True)
+    yp, sp = ssd_chunked(leaf, *args[1:], chunk=32)
+    (yp.sum() + sp.sum()).backward()
+    _assert_ssd_close(r.grad, leaf.grad, False)
+
+
+@pytest.mark.gpu
+def test_ssd_raises_when_library_fails_to_load(cuda, monkeypatch):
+    args = _ssd_inputs(1, 64, 4, 32, 2, 16, torch.float32, cuda, 0)
+
+    def broken(name):
+        raise OSError(f"cannot load {name}")
+
+    ssd._launch_fn.cache_clear()
+    monkeypatch.setattr(_build, "library", broken)
+    before = ssd.ssd_scan_fwd.launches
+    try:
+        with pytest.raises(OSError, match="ssd_scan"):
+            ssd.ssd_scan_fwd(*args, chunk=32)
+    finally:
+        ssd._launch_fn.cache_clear()
+    assert ssd.ssd_scan_fwd.launches == before
+
+
+@pytest.mark.gpu
+def test_mamba2_prefill_on_card_launches_and_matches_cpu(cuda):
+    """Reduced mamba2-780m (norm scales, conv bias and D off their init
+    values): the card's prefill launches the SSD kernel once per layer,
+    and prefill + 8 decode steps match the CPU run ≤1e-5·(1+max) on
+    logits and caches, tokens equal."""
+    cfg = get_config("mamba2-780m").reduced()
+    p_cpu = tmod.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    for layer in p_cpu["stack"]["layers"]:
+        for t in (layer["norm"]["scale"], layer["mixer"]["norm_scale"],
+                  layer["mixer"]["conv_b"], layer["mixer"]["D"]):
+            t.add_(0.1 * torch.randn(t.shape, generator=gen))
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 45)))
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        params = tree_map(lambda t: t.to(dev), p_cpu)
+        cache = tmod.init_cache(cfg, 3, 53, dtype=torch.float32, device=dev)
+        before = ssd.ssd_scan_fwd.launches
+        logits, cache = tmod.prefill(params, cfg, {"tokens": tokens.to(dev)},
+                                     cache)
+        launches = ssd.ssd_scan_fwd.launches - before
+        outs = [logits.cpu()]
+        for step in range(8):
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            logits, cache = tmod.decode_step(params, cfg, tok, cache,
+                                             45 + step)
+            outs.append(logits.cpu())
+        runs.append((outs, tmod.caches_to_numpy(cache, cfg), launches))
+    (c_out, c_cache, c_n), (g_out, g_cache, g_n) = runs
+    assert c_n == 0 and g_n == cfg.num_layers
+    for g, c in zip(g_out, c_out):
+        assert float((g - c).abs().max()) <= 1e-5 * (1 + float(c.abs().max()))
+        assert torch.equal(g.argmax(-1), c.argmax(-1))
+    for gl, cl in zip(g_cache["dec"]["rem"], c_cache["dec"]["rem"]):
+        for name in ("conv", "ssm"):
+            assert np.abs(gl[name] - cl[name]).max() <= \
+                1e-5 * (1 + np.abs(cl[name]).max())

@@ -50,13 +50,19 @@ def assert_close(out, ref, tol=1e-5):
                                atol=tol * (1.0 + float(np.abs(ref).max())))
 
 
+# leaves initialised to a constant: norm scales, biases, and Mamba2's
+# gated-norm scale, conv bias and skip weight D
+OFF_INIT = ("scale", "bq", "bk", "bv", "norm_scale", "conv_b", "D")
+
+
 def _perturbed(tree, rng):
-    """numpy copy of a reference param tree with norm scales and biases
-    off zero, so the (1+scale) norms and the bias adds are exercised."""
+    """numpy copy of a reference param tree with the constant-initialised
+    leaves moved off their init values, so the (1+scale) norms, the bias
+    adds and the skip are exercised."""
     if isinstance(tree, dict):
         return {k: (np.asarray(v) + rng.normal(0, 0.1, np.shape(v))
                     .astype(np.float32)
-                    if k in ("scale", "bq", "bk", "bv")
+                    if k in OFF_INIT
                     else _perturbed(v, rng)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_perturbed(v, rng) for v in tree]
@@ -88,7 +94,7 @@ def test_qwen2_registered_as_in_reference():
     assert dataclasses.asdict(tcfg) == \
         dataclasses.asdict(j_get_config("qwen2-0.5b"))
     assert tcfg.param_count == 494_032_768
-    assert t_base.all_arch_ids() == ["qwen2-0.5b"]
+    assert t_base.all_arch_ids() == ["mamba2-780m", "qwen2-0.5b"]
     with pytest.raises(KeyError, match="13"):
         t_base.get_config("mixtral-8x7b")
 
@@ -291,7 +297,7 @@ def test_init_params_has_reference_layout():
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch,item", [
     ("mixtral-8x7b", "#13c"), ("granite-moe-1b-a400m", "#13c"),
-    ("mamba2-780m", "#13d"), ("zamba2-7b", "#13d"),
+    ("zamba2-7b", "#13d"),
     ("seamless-m4t-large-v2", "#13e"), ("llava-next-34b", "#13e")])
 def test_unported_families_raise(arch, item):
     tcfg = port_config(j_get_config(arch).reduced())

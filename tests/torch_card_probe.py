@@ -11,17 +11,29 @@ check goes to ``$TORCH_CARD_PROBE_OUT`` (default
 
     PYTHONPATH=tests:src python -m pytest --noconftest -p torch_card_probe \\
         -m gpu tests/test_torch_gpu.py
+
+During ``test_init_params_lands_on_the_card`` it also keeps the host copy
+of every draw that goes to the card (the same draw, then the same
+copies, as ``init_params`` makes them), and after the test writes one
+``"init_test"`` line: the outcome, the intra-op thread count, and per
+card draw the leaves where the host copy differs from the session's
+reference draw and where the card copy differs from its host copy (so a
+failure says whether the host computed differently or the copy to the
+card changed the values).  With ``TORCH_CARD_PROBE_INIT_THREADS=n`` the
+test runs under ``torch.set_num_threads(n)``.
 """
 import json
 import os
 
+import pytest
 import torch
 
-from repro_torch._tree import leaves
+from repro_torch._tree import leaves, tree_map
 from repro_torch.configs.base import get_config
 from repro_torch.models import transformer as tmod
 
 _REF = {}
+_INIT_TEST = "test_init_params_lands_on_the_card"
 
 
 def _out_path() -> str:
@@ -64,6 +76,44 @@ def pytest_sessionstart(session):
         torch.set_num_threads(default)
     _write({"session": True, "torch": torch.__version__,
             "threads": default, "draws_by_threads": by_threads})
+
+
+@pytest.hookimpl(hookwrapper=True)
+def pytest_runtest_call(item):
+    if item.name != _INIT_TEST:
+        yield
+        return
+    original = tmod.init_params
+    kept = []                      # (host leaves, card leaves) per draw
+
+    def traced(cfg, gen, *, dtype=None, device=None):
+        dev = tmod.resolve_device(device)
+        host = original(cfg, gen, dtype=dtype, device="cpu")
+        if dev.type == "cpu":
+            return host
+        card = tree_map(lambda t: t.to(dev), host)
+        kept.append((leaves(host), leaves(card)))
+        return card
+
+    default = torch.get_num_threads()
+    pin = int(os.environ.get("TORCH_CARD_PROBE_INIT_THREADS", "0"))
+    tmod.init_params = traced
+    if pin:
+        torch.set_num_threads(pin)
+    try:
+        outcome = yield
+    finally:
+        tmod.init_params = original
+        threads = torch.get_num_threads()
+        torch.set_num_threads(default)
+    draws = []
+    for host, card in kept:
+        draws.append({
+            "host_vs_reference": _differences(host, _REF["draw"]),
+            "card_vs_host": _differences([c.cpu() for c in card], host)})
+    _write({"init_test": item.nodeid,
+            "passed": outcome.excinfo is None, "threads": threads,
+            "pinned": pin, "draws": draws})
 
 
 def pytest_runtest_teardown(item, nextitem):

@@ -19,9 +19,11 @@ through the weighted-aggregation kernel).  Phases, one JSON line each:
                card, at the main path's shapes and at a ragged one;
 4.  flash    — flash_attention_fwd against its plain version (output and
                log-sum-exp), f32 and bf16, window, softcap, GQA, ragged S;
-4b. flash_bwd — the dQ and dK/dV kernels against the plain backward, two
-               launches bitwise equal, and autograd through
-               ``ops.flash_attention`` against the plain backward;
+4b. flash_bwd — the dQ and dK/dV kernels (3xTF32 on the tensor cores;
+               dK/dV per query head, then one group-sum launch when
+               H > Hkv) against the plain backward, two launches bitwise
+               equal, and autograd through ``ops.flash_attention``
+               against the plain backward;
 4c. ssd      — ssd_scan_fwd against the plain chunked op and the
                sequential recurrence, f32 and bf16 inputs, the reference's
                SSD_CASES, mamba2-780m's prefill shape and one row of it,
@@ -54,7 +56,10 @@ through the weighted-aggregation kernel).  Phases, one JSON line each:
                steps; then one step through the naive attention
                (loss, parameters and gradients ≤1e-5·(1+max));
 9.  timing   — each kernel, its plain version and the one PyTorch call
-               computing the same function, timed with CUDA events;
+               computing the same function, timed with CUDA events (the
+               SDPA backward with its backend read from the profiler, its
+               min and median over 25 replays, and the backward pair's
+               verdict against it);
 10. profile  — device busy share and device time by kernel over a short
                CSMAAFL run, full-width qwen2 and mamba2 prefill + decode and
                a full-width train step.
@@ -78,6 +83,7 @@ N_CNN = 1_663_370              # flat parameters of the paper's MNIST CNN
 N_QWEN_EMBED = 151_936 * 896   # qwen2-0.5b's (tied) embedding leaf
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12      # H100 SXM TF32 tensor cores, dense
 KERNEL_SOURCE = "src/repro_torch/kernels/weighted_agg/csrc/weighted_agg.cu"
 KERNEL_REPLACES = "src/repro/kernels/weighted_agg/weighted_agg.py:106"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
@@ -125,7 +131,11 @@ TRAIN_B = TRAIN_C * TRAIN_ROWS          # attention batch of a K=1 step
 # B, H, Hkv, S, D, window, softcap, dtype: the reference's backward cases
 # (tests/test_kernels.py), FLASH_CASES' reference part, qwen2-0.5b's heads
 # at S = 128 and ragged 200, and the training shape (B = 8, S = 512) and
-# its ragged S = 200, f32 and bf16
+# its ragged S = 200, f32 and bf16; then the dK/dV grid's three regimes,
+# each at a tile multiple and ragged, f32 and bf16: rep = 1 (no partials,
+# no group sum), rep = 8 and rep = 14 (MQA); and qwen2-0.5b's heads at
+# S = 2048, where a sum chained through the tensor cores' accumulator over
+# the whole walk would drift past the bound
 FLASH_BWD_CASES = [
     (1, 4, 2, 128, 32, 0, 0.0, "float32"),
     (1, 4, 2, 160, 32, 48, 0.0, "float32"),
@@ -139,6 +149,10 @@ FLASH_BWD_CASES = [
     (TRAIN_B, 14, 2, 200, 64, 0, 0.0, "bfloat16"),
     (1, 2, 2, 300, 256, 0, 0.0, "float32"),
     (1, 4, 2, 130, 128, 0, 0.0, "bfloat16"),
+    *[(2, H, Hkv, S, 64, 0, 0.0, dtype)
+      for H, Hkv in ((4, 4), (16, 2), (14, 1)) for S in (256, 200)
+      for dtype in ("float32", "bfloat16")],
+    (1, 14, 2, 2048, 64, 0, 0.0, "float32"),
 ]
 
 
@@ -282,8 +296,9 @@ def flash_bwd_vs_plain(device):
     """The dQ and dK/dV kernels (``flash_attention_bwd``) against the plain
     backward ``attention_bwd_ref`` on the same (q, k, v, out, lse, dout),
     in the model's (B, S, H, D) layout read through strides; a second
-    launch on the same inputs must give the same bits, and each gradient
-    takes its input's layout.  Then autograd through ``ops.flash_attention``
+    launch on the same inputs must give the same bits, each gradient
+    takes its input's layout, and the group sum runs once a call exactly
+    when H > Hkv.  Then autograd through ``ops.flash_attention``
     (the forward and both backward kernels behind a
     ``torch.autograd.Function``) against the same plain backward: the
     forward kernel is deterministic, so both are fed the same (out, lse)
@@ -305,8 +320,10 @@ def flash_bwd_vs_plain(device):
         qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
         kw = dict(causal=True, window=win, logit_cap=cap)
         out, lse = flash_attention_fwd(qt, kt, vt, return_lse=True, **kw)
+        sums = flash_attention_bwd.launches_group_sum
         got = flash_attention_bwd(qt, kt, vt, out, lse, dot, **kw)
         again = flash_attention_bwd(qt, kt, vt, out, lse, dot, **kw)
+        sums = flash_attention_bwd.launches_group_sum - sums
         ref = attention_bwd_ref(qt, kt, vt, out, lse, dot, **kw)
         leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
         ops.flash_attention(*leaves, **kw).backward(do)
@@ -316,8 +333,10 @@ def flash_bwd_vs_plain(device):
                 "bitwise_repeat": all(torch.equal(a, b)
                                       for a, b in zip(got, again)),
                 "layouts": all(g.stride() == x.stride()
-                               for g, x in zip(got, (qt, kt, vt)))}
-        ok = case["bitwise_repeat"] and case["layouts"]
+                               for g, x in zip(got, (qt, kt, vt))),
+                "group_sum_launches": sums}
+        ok = case["bitwise_repeat"] and case["layouts"] \
+            and sums == (2 if H > Hkv else 0)
         for name, g, r, x in zip(("dq", "dk", "dv"), got, ref, leaves):
             err, good = _grad_close(g, r, dtype)
             a_err, a_good = _grad_close(x.grad.transpose(1, 2), r, dtype)
@@ -791,6 +810,7 @@ def _launch_counts():
     return {"flash_fwd": fa.flash_attention_fwd.launches,
             "flash_bwd_dq": fa.flash_attention_bwd.launches_dq,
             "flash_bwd_dkv": fa.flash_attention_bwd.launches_dkv,
+            "flash_bwd_group_sum": fa.flash_attention_bwd.launches_group_sum,
             "weighted_agg": wa.weighted_agg_flat2d.launches,
             "ssd_scan": ssd.ssd_scan_fwd.launches}
 
@@ -802,6 +822,7 @@ def _zero_launch_counts():
     fa.flash_attention_fwd.launches = 0
     fa.flash_attention_bwd.launches_dq = 0
     fa.flash_attention_bwd.launches_dkv = 0
+    fa.flash_attention_bwd.launches_group_sum = 0
     wa.weighted_agg_flat2d.launches = 0
     ssd.ssd_scan_fwd.launches = 0
 
@@ -892,6 +913,7 @@ def reduced_train_cpu_vs_card(device):
         want = {"flash_fwd": cfg.num_layers * grads,
                 "flash_bwd_dq": cfg.num_layers * grads,
                 "flash_bwd_dkv": cfg.num_layers * grads,
+                "flash_bwd_group_sum": cfg.num_layers * grads,
                 "weighted_agg": n_leaves if K > 1 else 0, "ssd_scan": 0}
         rec = {"param_rel_err": _tree_rel_err(g_new, c_new),
                "grad_rel_err": _tree_rel_err(g_g, c_g), "tol": 1e-5,
@@ -972,8 +994,8 @@ def train_main_path(device):
     grads = 8 + 2 + TRAIN_C * 2       # gradient computations on the path
     fwd = 2 if cfg.remat else 1       # remat recomputes each forward
     want = {"flash_fwd": fwd * L * grads, "flash_bwd_dq": L * grads,
-            "flash_bwd_dkv": L * grads, "weighted_agg": n_leaves,
-            "ssd_scan": 0}
+            "flash_bwd_dkv": L * grads, "flash_bwd_group_sum": L * grads,
+            "weighted_agg": n_leaves, "ssd_scan": 0}
     check(launches == want, f"train launches {launches}, expected {want}")
     del params, run
 
@@ -1127,7 +1149,8 @@ def profile_serve(state, kernel="flash_fwd", label="flash",
 def profile_train(state):
     """Device busy share and device time by kernel over one full-width
     fused step (K=1, flash kernels, remat), from a torch.profiler trace;
-    the flash forward's and backward's shares of the device time."""
+    the flash forward's and backward's shares of the device time (dK/dV
+    counts its group-sum kernel, which is also shown alone)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1159,7 +1182,8 @@ def profile_train(state):
             "device_kernels": len(spans), "device_us": device_us,
             "flash_fwd": part("flash_fwd"),
             "flash_bwd_dq": part("flash_bwd_dq"),
-            "flash_bwd_dkv": part("flash_bwd_dkv"),
+            "flash_bwd_dkv": part("flash_bwd_dkv"),   # and its group sum
+            "flash_bwd_dkv_group_sum": part("flash_bwd_dkv_group_sum"),
             "top_kernels": top_kernels(by_name, 10)}
 
 
@@ -1201,9 +1225,9 @@ def time_graph(fn, sets, launches, replays=10):
 
 
 def time_events(fn, sets, launches, replays=5):
-    """Median time of one call of ``fn`` from CUDA events around
-    ``launches`` eager calls (for a library call that a CUDA graph cannot
-    hold, such as an autograd backward)."""
+    """Times of one call of ``fn``, one per replay, sorted, from CUDA
+    events around ``launches`` eager calls (for a library call that a CUDA
+    graph cannot hold, such as an autograd backward)."""
     import torch
 
     for i in range(3):
@@ -1219,8 +1243,7 @@ def time_events(fn, sets, launches, replays=5):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / launches)
-    times.sort()
-    return times[len(times) // 2]
+    return sorted(times)
 
 
 def bound(C, n, itemsize=4):
@@ -1331,28 +1354,54 @@ def flash_timing(device, nsets=4, launches=20):
 def flash_bwd_bound(which, B, H, Hkv, S, D, itemsize=4):
     """Least time of one backward kernel on the card: its causal products
     (dQ: QKᵀ, dO·Vᵀ, dS·K; dK/dV: those two and Pᵀ·dO, dSᵀ·Q), each
-    2·B·H·D·S(S+1)/2 flops, at the f32 rate outside the tensor cores
-    (67 TFLOP/s), against its bytes at 3.35 TB/s: dQ reads q, k, v, dout,
-    lse, δ and writes dq; dK/dV reads the same and writes dk, dv."""
+    2·B·H·D·S(S+1)/2 flops, three times over (3xTF32, the least work that
+    keeps f32 accuracy on the tensor cores) at the dense TF32 rate (495
+    TFLOP/s), against its bytes at 3.35 TB/s: dQ reads q, k, v, dout,
+    lse, δ and writes dq; dK/dV reads the same and writes dk, dv.  Also
+    returns the bytes and the flops."""
     products = 3 if which == "dq" else 4
     flops = products * B * H * D * S * (S + 1)
     q_like = (3 if which == "dq" else 2) * B * H * S * D
     kv_like = (2 if which == "dq" else 4) * B * Hkv * S * D
     moved = (q_like + kv_like) * itemsize + 2 * B * H * S * 4
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = 3 * flops / TF32_FLOPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", moved, flops)
+
+
+def sdpa_backward_backend(o, leaves, do):
+    """Which backend PyTorch took for the backward of
+    ``F.scaled_dot_product_attention``, from the kernel names of one
+    profiled call: "efficient" (fmha), "cudnn", "flash", or "math" (plain
+    GEMMs and softmax kernels); with its kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(o, leaves, do, retain_graph=True)
+        torch.cuda.synchronize()
+    _, _, by_name = device_spans(prof)
+    names = " ".join(by_name).lower()
+    backend = next((b for key, b in (("fmha", "efficient"),
+                                     ("cudnn", "cudnn"),
+                                     ("flash", "flash")) if key in names),
+                   "math")
+    return backend, top_kernels(by_name, 6)
 
 
 def flash_bwd_timing(device, nsets=3, launches=10):
     """The dQ and dK/dV kernels at the training main path's shape
     (B = 8, S = 512, 14 heads over 2 kv heads, D = 64, f32, causal, in
     the model's (B, S, H, D) layout), each timed alone over a CUDA graph
-    with its inputs (q, k, v, dout, lse, δ) precomputed; the plain
-    backward (dq, dk and dv together); and the backward of
-    ``F.scaled_dot_product_attention(is_causal, enable_gqa)`` on the same
-    inputs, timed eagerly (an autograd backward is not graph-captured)."""
+    with its inputs (q, k, v, dout, lse, δ) precomputed (dK/dV with its
+    group-sum launch); the plain backward (dq, dk and dv together); and
+    the backward of ``F.scaled_dot_product_attention(is_causal,
+    enable_gqa)`` on the same inputs, timed eagerly (an autograd backward
+    is not graph-captured) over 25 replays (its time moves between runs),
+    with its backend read from the profiler.  The pair's verdict against it is
+    taken here, in one call on one card."""
     import torch
     import torch.nn.functional as F
 
@@ -1380,24 +1429,34 @@ def flash_bwd_timing(device, nsets=3, launches=10):
         o = F.scaled_dot_product_attention(*leaves, is_causal=True,
                                            enable_gqa=True)
         lib_sets.append((o, leaves, do))
-    library_ms = time_events(lambda s: torch.autograd.grad(
-        s[0], s[1], s[2], retain_graph=True), lib_sets, launches)
+    backend, lib_kernels = sdpa_backward_backend(*lib_sets[0])
+    lib_times = time_events(lambda s: torch.autograd.grad(
+        s[0], s[1], s[2], retain_graph=True), lib_sets, launches, replays=25)
+    library_ms = lib_times[len(lib_times) // 2]
     out = {}
     for which, fn in kernels.items():
         b, by, moved, flops = flash_bwd_bound(which, B, H, Hkv, S, D)
         rec = {"ms": time_graph(fn, sets, launches), "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": b, "bound_by": by,
+               "library_ms": library_ms, "library_backend": backend,
+               "bound_ms": b, "bound_by": by,
+               "bound_rate": "3 x flops at 495 TFLOP/s (TF32) vs bytes",
                "bytes": moved, "flops": flops, "B": B, "H": H, "Hkv": Hkv,
                "S": S, "D": D, "input_sets": nsets,
                "launches_per_graph": launches}
         rec["achieved_TFLOPs"] = flops / (rec["ms"] * 1e-3) / 1e12
+        rec["share_of_bound"] = b / rec["ms"]
         emit("timing", kernel=f"flash_attention_bwd_{which}", **rec)
         out[which] = rec
+    pair = out["dq"]["ms"] + out["dkv"]["ms"]
     least = 5 * B * H * D * S * (S + 1)       # the pair's least work
     emit("timing", kernel="flash_attention_bwd (dQ + dK/dV)",
-         ms=out["dq"]["ms"] + out["dkv"]["ms"], library_ms=library_ms,
-         plain_ms=plain_ms, least_work_flops=least,
-         least_work_bound_ms=least / F32_FLOPS_PER_S * 1e3)
+         ms=pair, plain_ms=plain_ms, library_backend=backend,
+         library_kernels=lib_kernels, library_ms_median=library_ms,
+         library_ms_min=lib_times[0], library_ms_all=lib_times,
+         pair_faster_than_library_median=pair < library_ms,
+         pair_faster_than_library_min=pair < lib_times[0],
+         least_work_flops=least,
+         least_work_bound_ms=3 * least / TF32_FLOPS_PER_S * 1e3)
     return out
 
 
@@ -1483,6 +1542,7 @@ def main():
     emit("flash", cases=flash_cases, max_abs_err=flash_worst)
     bwd_cases, bwd_worst = flash_bwd_vs_plain(device)
     emit("flash_bwd", cases=bwd_cases, max_abs_err=bwd_worst)
+    torch.cuda.empty_cache()     # return what 4b's plain references cached
     ssd_cases, ssd_worst = ssd_vs_plain(device)
     emit("ssd", cases=ssd_cases, max_abs_err=ssd_worst)
 
@@ -1541,16 +1601,17 @@ def main():
          "bound_by": flash_t["bound_by"],
          "library_ms": flash_t["library_ms"]},
     ]
-    for which, label, replaces in (
-            ("dq", "dQ", FLASH_DQ_REPLACES),
-            ("dkv", "dK/dV", FLASH_DKV_REPLACES)):
+    for which, label, replaces, extra in (
+            ("dq", "dQ", FLASH_DQ_REPLACES, ""),
+            ("dkv", "dK/dV", FLASH_DKV_REPLACES,
+             "; with its group-sum launch")):
         t = bwd_t[which]
         err = max(v for k, v in bwd_worst.items()
                   if k.endswith("/float32") and k.startswith(
                       ("dq",) if which == "dq" else ("dk", "dv")))
         kernels.append({
             "name": f"flash_attention_bwd {label} (qwen2-0.5b train, f32, "
-                    f"causal)",
+                    f"causal, 3xTF32{extra})",
             "route": "cuda", "source": FLASH_BWD_SOURCE,
             "replaces": replaces,
             "launches": train["launches"][f"flash_bwd_{which}"],

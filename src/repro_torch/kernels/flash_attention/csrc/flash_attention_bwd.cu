@@ -1,6 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a): the two kernels of the
-// flash VJP, dQ and dK/dV, for causal (or full) attention with optional
-// sliding window, GQA and logit softcap.
+// Flash-attention backward for Hopper (sm_90a): the kernels of the flash
+// VJP, dQ and dK/dV (with a group-sum pass for GQA), for causal (or full)
+// attention with optional sliding window, GQA and logit softcap.
 //
 //   raw_ij = scale * (q_i . k_j)          (scaled AFTER the product)
 //   s_ij   = cap*tanh(raw_ij/cap)          (or raw_ij without a cap)
@@ -22,40 +22,68 @@
 // _fa_bwd_dkv_kernel).  The numerics are those kernels': p is recomputed
 // from the forward's log-sum-exp (no S^2 residuals), the raw product is
 // scaled after the dot as in _p_block, the softcap jacobian is applied
-// analytically, and the causal/window tile skip is the reference's
-// (it only drops exact zeros).  The grids are not carried over: the TPU
-// walks the kv blocks (dQ) or the q blocks (dK/dV) as a sequential grid
-// axis with f32 accumulators in VMEM scratch; here
+// analytically, and the causal/window tile skip is the reference's (it
+// only drops exact zeros).  The grids are not carried over: the TPU walks
+// the kv tiles (dQ) or the q tiles (dK/dV) as a sequential grid axis with
+// f32 accumulators in VMEM scratch, and sums each GQA group inside one
+// grid step; here
 //   * dQ: one thread block owns a (b, h, query tile) and loops over the
-//     kv tiles itself, dQ accumulating in registers;
-//   * dK/dV: one thread block owns a (b, kv head g, kv tile) and loops
-//     over the query tiles and over the H/Hkv query heads of the group,
-//     dK and dV accumulating in registers.  The group sum stays inside
-//     the block: no atomics, no second pass, so dK and dV are
-//     deterministic (two launches give the same bits).
+//     kv tiles itself, 32 keys a step, dQ accumulating in registers;
+//   * dK/dV: one thread block owns a (b, query head h, kv tile) and loops
+//     over the query tiles, 32 queries a step, dK_h and dV_h accumulating
+//     in registers.
+//     With H > Hkv each block writes its head's f32 partials to a scratch
+//     (B, H, Sk, D) that the wrapper allocates, and a second kernel sums
+//     each group's H/Hkv partials in the fixed order r = 0..rep-1 and
+//     writes dk and dv; with H == Hkv the block writes dk and dv itself.
+// No atomics: two launches give the same bits.
 //
-// Bound.  At the training shape (S = 512, D = 64) each kernel does a few
-// causal products of ~2*S*S*D/2 flops per (b, h) against ~S*D*4 bytes
-// per tensor: ~100 flop/byte, bound by arithmetic.  This first version
-// computes in f32 on the CUDA cores (67 TFLOP/s), not on the tensor
-// cores (mma.sync / wgmma, TMA and pipelining are later work).  What the
-// design does about it, as in the forward kernel beside it:
-//   * register blocking: 4*T threads as (T/4) x 16 for a T x T tile; a
-//     thread holds a 4 x T/16 block of the tile's products and a
-//     4 x D/16 block of its accumulator, so each shared-memory load
-//     feeds two or more FMAs;
-//   * operands are staged in shared memory in f32 (converted from bf16
-//     on load), transposed where a float4 read of 4 rows is wanted, with
-//     padded row strides against bank conflicts;
-//   * tiles wholly above the causal diagonal, or wholly before the
-//     window, are skipped;
-//   * the ragged tail is masked in place (nothing padded or copied);
-//     out-of-range rows are staged as zeros;
-//   * every tensor is read and written through strides (last dimension
-//     contiguous), so the model's (B, S, H, D) layout needs no copy and
-//     each gradient takes its input's layout.
-// Tiles: T = 64 up to D = 128, T = 32 at D = 256 (shared memory stays
-// under 227 KB; above 48 KB the launcher opts in).
+// Bound.  At the training shape (B = 8, S = 512, H = 14, Hkv = 2, D = 64)
+// each kernel does three (dQ) or four (dK/dV) causal products of
+// ~B*H*D*S^2 flops against a few MB of tensors: bound by arithmetic.  The
+// reference holds the gradients to f32 within 2e-5*(1+max|ref|), which
+// one TF32 pass (10-bit mantissa) misses by ~30x.  What the design does:
+//   * products on the tensor cores in 3xTF32 (mma.sync m16n8k8, f32
+//     accumulation): each f32 operand x is split into hi = tf32(x) and
+//     lo = tf32(x - hi), and a.b = al.bh + ah.bl + ah.bh (al.bl dropped),
+//     which keeps f32 accuracy at 3 TF32 passes (495/3 TFLOP/s against 67
+//     on the CUDA cores).  An operand read from bf16 is exact in TF32
+//     (lo = 0), so Q.K^T and dO.V^T in bf16 take one pass and the products
+//     with p or ds two;
+//   * a warp owns 16 rows (queries in dQ, keys in dK/dV) and keeps its
+//     S/dP tile in mma accumulator fragments; p and ds are formed there
+//     and fed straight back as the A operand of the next product (the
+//     summed index permuted within each 8-wide step, and the B operand
+//     read in the same permuted order), so they never touch shared memory;
+//   * head-split dK/dV grid: at the training shape 896 blocks of 4 warps
+//     (not 128 of 8 with each block walking its group's 7 heads);
+//   * occupancy: the walked tile is 32 rows, which halves the S/dP
+//     accumulators and the staged tiles, so up to D = 64 three blocks
+//     (12 warps) fit an SM in both kernels;
+//   * heaviest blocks first: the linear block index issues the causal
+//     diagonal's longest walks first (dQ: the last query tile, dK/dV: the
+//     first kv tile, of every (b, h)), which shortens the tail;
+//   * cp.async double buffering: the next kv tile (dQ) or query tile with
+//     its lse and delta rows (dK/dV) is in flight during the current
+//     tile's math; tiles are staged in the storage dtype with rows padded
+//     by 16 bytes, so every fragment read is free of bank conflicts;
+//   * f32 sums across tiles: the tensor cores add into their f32
+//     accumulator without IEEE rounding (the error leans one way), so a
+//     chain over the whole walk (3 * S/8 mma steps) drifts with S; each
+//     walked tile's dq, dk, dv products are summed in fresh fragments and
+//     added to the running sums with f32 adds, so only 3 * 32/8 steps
+//     chain;
+//   * the ragged tail is masked in place (zero-filled copies, nothing
+//     padded in memory); every tensor is read and written through strides
+//     (16-byte aligned rows; the wrapper copies anything else), so the
+//     model's (B, S, H, D) layout needs no copy and each gradient takes
+//     its input's layout.
+// Tiles: a block owns T = 64 rows up to D = 128 (T = 32 at D = 256) and
+// walks the other axis 32 rows at a time; a warp accumulates at most 64
+// columns (D = 128: 8 warps, D = 256: 8 warps, each (row group, column
+// group) pair recomputing its row group's S/dP).
+// Shared memory per block at D = 64, f32: 69,632 bytes (dQ), 70,144
+// (dK/dV).
 //
 // Plain C interface (loaded with ctypes); launches on the caller's stream,
 // never synchronises, allocates nothing, and returns cudaGetLastError().
@@ -63,6 +91,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -76,7 +106,8 @@ struct Args {
   void* dq;
   void* dk;
   void* dv;
-  int H, Hkv, Sq, Sk;
+  float* part;                      // (2, B, H, Sk, D) f32 when H > Hkv
+  int B, H, Hkv, Sq, Sk;
   // element strides: [batch, head, seq]; the last dimension is contiguous
   int64_t qs[3], ks[3], vs[3], os[3], dqs[3], dks[3], dvs[3];
   float scale, cap;
@@ -92,8 +123,151 @@ __device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// tile rows, accumulator columns per warp, warps, staged row stride
 template <int D>
 __host__ __device__ constexpr int tile() { return D <= 128 ? 64 : 32; }
+template <int D>
+__host__ __device__ constexpr int acc_cols() { return D < 64 ? D : 64; }
+template <int D>
+__host__ __device__ constexpr int n_warps() {
+  return (tile<D>() / 16) * (D / acc_cols<D>());
+}
+// rows of the tile a block walks: 32, so three blocks fit an SM up to
+// D = 64
+constexpr int kWalk = 32;
+template <int D>
+__host__ __device__ constexpr int min_blocks() { return D <= 64 ? 3 : 1; }
+template <typename T_, int D>
+__host__ __device__ constexpr int srow() {
+  return D + 16 / static_cast<int>(sizeof(T_));
+}
+
+// ---------------------------------------------------------------------------
+// cp.async, TF32 split and the m16n8k8 product
+// ---------------------------------------------------------------------------
+// 16 bytes global -> shared; zero-filled when !valid (src is then not read)
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// round to the nearest TF32 value, ties away from zero: cvt.rna.tf32.f32
+// for finite x in two integer operations (on sm_90a the cvt compiles to a
+// longer compare-and-select sequence)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo up to what TF32 drops of lo; kExact: x came from bf16, so it
+// is a TF32 value and lo = 0
+template <bool kExact>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if (kExact) {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  } else {
+    hi = tf32(x);
+    lo = tf32(x - __uint_as_float(hi));
+  }
+}
+
+// c (16x8) += a (16x8, row) . b (8x8, col), TF32 in, f32 accumulate.
+// Fragments (g = lane/4, t = lane%4): a0 (g, t), a1 (g+8, t), a2 (g, t+4),
+// a3 (g+8, t+4); b0 (k t, n g), b1 (k t+4, n g); c0 (g, 2t), c1 (g, 2t+1),
+// c2 (g+8, 2t), c3 (g+8, 2t+1).
+__device__ __forceinline__ void mma(float* c, const uint32_t* a,
+                                    const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 3xTF32: the two small cross terms first, then hi.hi; an exact operand
+// has no lo, so its cross term is skipped
+template <bool kAExact, bool kBExact>
+__device__ __forceinline__ void mma3(float* c, const uint32_t* ah,
+                                     const uint32_t* al, const uint32_t* bh,
+                                     const uint32_t* bl) {
+  if (!kAExact) mma(c, al, bh);
+  if (!kBExact) mma(c, ah, bl);
+  mma(c, ah, bh);
+}
+
+// A fragment of rows m0.., columns k0.. of a row-major staged tile X
+template <bool kExact, typename T_>
+__device__ __forceinline__ void frag_a(const T_* X, int sr, int m0, int k0,
+                                       int g, int t, uint32_t* hi,
+                                       uint32_t* lo) {
+  const T_* p = X + (m0 + g) * sr + k0 + t;
+  split<kExact>(to_f32(p[0]), hi[0], lo[0]);
+  split<kExact>(to_f32(p[8 * sr]), hi[1], lo[1]);
+  split<kExact>(to_f32(p[4]), hi[2], lo[2]);
+  split<kExact>(to_f32(p[8 * sr + 4]), hi[3], lo[3]);
+}
+
+// B fragment with B[k][n] = Y[n0 + n][k0 + k] (Y's rows are the n index)
+template <bool kExact, typename T_>
+__device__ __forceinline__ void frag_b_rows_n(const T_* Y, int sr, int n0,
+                                              int k0, int g, int t,
+                                              uint32_t* hi, uint32_t* lo) {
+  const T_* p = Y + (n0 + g) * sr + k0 + t;
+  split<kExact>(to_f32(p[0]), hi[0], lo[0]);
+  split<kExact>(to_f32(p[4]), hi[1], lo[1]);
+}
+
+// B fragment with B[k][n] = Y[k0 + perm(k)][n0 + n], perm(t) = 2t and
+// perm(t+4) = 2t+1: the order in which an accumulator fragment holds its
+// columns, so that fragment serves as the A operand as it stands
+template <bool kExact, typename T_>
+__device__ __forceinline__ void frag_b_rows_k(const T_* Y, int sr, int k0,
+                                              int n0, int g, int t,
+                                              uint32_t* hi, uint32_t* lo) {
+  const T_* p = Y + (k0 + 2 * t) * sr + n0 + g;
+  split<kExact>(to_f32(p[0]), hi[0], lo[0]);
+  split<kExact>(to_f32(p[sr]), hi[1], lo[1]);
+}
+
+// an accumulator fragment (16 rows x 8 columns) as an A fragment over its
+// columns in frag_b_rows_k's order
+__device__ __forceinline__ void frag_a_acc(const float* c, uint32_t* hi,
+                                           uint32_t* lo) {
+  split<false>(c[0], hi[0], lo[0]);
+  split<false>(c[2], hi[1], lo[1]);
+  split<false>(c[1], hi[2], lo[2]);
+  split<false>(c[3], hi[3], lo[3]);
+}
+
+// T rows from row r0 of a strided (n, D) matrix into a staged [T][SR]
+// tile; rows at or past n are zeros
+template <typename T_, int D, int T, int SR, int NT>
+__device__ __forceinline__ void load_tile(T_* dst, const T_* src, int64_t rs,
+                                          int r0, int n) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T_));
+  constexpr int CPR = D / E;        // 16-byte copies per row
+  for (int i = threadIdx.x; i < T * CPR; i += NT) {
+    const int r = i / CPR, c = (i % CPR) * E;
+    const bool in = r0 + r < n;
+    cp16(dst + r * SR + c, in ? src + (r0 + r) * rs + c : src, in);
+  }
+}
 
 // p and the scaled ds of one (query i, key j) pair; the reference's
 // _p_block followed by its ds line, scale folded into ds.
@@ -116,369 +290,461 @@ __device__ __forceinline__ void p_ds(const Args& a, int qi, int kj, float s,
 }
 
 // the reference's tile-level skip: a kv tile wholly after the query
-// tile's last row (causal), or wholly before its first row's window
+// tile's last row (causal), or wholly before its first row's window.
+// Monotone in both tile indices, so the tiles kept form one range.
 __device__ __forceinline__ bool skip_tile(const Args& a, int q0, int k0,
-                                          int T) {
-  if (a.causal && k0 > q0 + T - 1) return true;
-  if (a.window > 0 && k0 + T - 1 < q0 - a.window + 1) return true;
+                                          int tq, int tk) {
+  if (a.causal && k0 > q0 + tq - 1) return true;
+  if (a.window > 0 && k0 + tk - 1 < q0 - a.window + 1) return true;
   return false;
 }
 
 // ---------------------------------------------------------------------------
 // dQ: one block per (b, h, T-row query tile), looping over kv tiles
 // ---------------------------------------------------------------------------
-template <int D>
-__host__ __device__ constexpr int dq_smem_floats() {
-  constexpr int T = tile<D>();
-  return 2 * D * (T + 4) + 2 * D * (T + 1) + T * (T + 1);
+template <typename T_, int D>
+__host__ __device__ constexpr int dq_smem_bytes() {
+  // Q, dout; K and V double-buffered
+  return (2 * tile<D>() + 4 * kWalk) * srow<T_, D>() *
+         static_cast<int>(sizeof(T_));
 }
 
 template <typename T_, int D>
-__global__ void __launch_bounds__(4 * tile<D>())
+__global__ void __launch_bounds__(32 * n_warps<D>(), min_blocks<D>())
 flash_bwd_dq_kernel(const Args a) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  constexpr bool kX = std::is_same<T_, __nv_bfloat16>::value;
   constexpr int T = tile<D>();
-  constexpr int NT = 4 * T;         // (T/4) row groups x 16 lanes
-  constexpr int KJ = T / 16;        // keys per thread
-  constexpr int C = D / 16;         // dq columns per thread
-  constexpr int QS = T + 4;         // q^T / dout^T row stride (float4)
-  constexpr int KS = T + 1;         // K^T / V^T row stride
-  constexpr int PS = T + 1;         // dS row stride
+  constexpr int DW = acc_cols<D>();
+  constexpr int RG = T / 16;        // row groups of 16 queries
+  constexpr int NT = 32 * n_warps<D>();
+  constexpr int SR = srow<T_, D>();
+  constexpr int TI = kWalk;       // keys a step
+  constexpr int NJ = TI / 8;        // 8-key column tiles of S
+  constexpr int NC = DW / 8;        // 8-wide column tiles of a warp's dq
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* qT = smem;                 // [D][QS]
-  float* oT = qT + D * QS;          // [D][QS]  dout^T
-  float* kT = oT + D * QS;          // [D][KS]
-  float* vT = kT + D * KS;          // [D][KS]
-  float* dsS = vT + D * KS;         // [T][PS]  scale * dS
+  T_* Qs = reinterpret_cast<T_*>(smem4);    // [T][SR]
+  T_* Os = Qs + T * SR;                     // [T][SR] dout
+  T_* Ks = Os + T * SR;                     // [2][TI][SR]
+  T_* Vs = Ks + 2 * TI * SR;                // [2][TI][SR]
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;          // key / column group
-  const int ty = tid >> 4;          // query rows 4ty .. 4ty+3
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (warp % RG);          // the warp's query rows
+  const int c0 = DW * (warp / RG);          // and dq columns
+  // heaviest first: under causal masking the last query tile of every
+  // (b, h) walks the most kv tiles, so those blocks lead
+  const int nq = (a.Sq + T - 1) / T;
+  const int BH = a.B * a.H;
+  const int rank = blockIdx.x / BH, bhi = blockIdx.x % BH;
+  const int h = bhi % a.H, b = bhi / a.H;
   const int hk = h * a.Hkv / a.H;   // the reference's head -> kv-head map
-  const int q0 = blockIdx.x * T;
+  const int q0 = (a.causal ? nq - 1 - rank : rank) * T;
 
   const T_* q = static_cast<const T_*>(a.q) + b * a.qs[0] + h * a.qs[1];
   const T_* o = static_cast<const T_*>(a.dout) + b * a.os[0] + h * a.os[1];
   const T_* k = static_cast<const T_*>(a.k) + b * a.ks[0] + hk * a.ks[1];
   const T_* v = static_cast<const T_*>(a.v) + b * a.vs[0] + hk * a.vs[1];
   const int64_t row = ((int64_t)b * a.H + h) * a.Sq;
+  const int qa = q0 + r0 + g, qb = qa + 8;  // this thread's two rows
+  const float lse_a = qa < a.Sq ? a.lse[row + qa] : 0.f;
+  const float lse_b = qb < a.Sq ? a.lse[row + qb] : 0.f;
+  const float dlt_a = qa < a.Sq ? a.delta[row + qa] : 0.f;
+  const float dlt_b = qb < a.Sq ? a.delta[row + qb] : 0.f;
 
-  for (int idx = tid; idx < T * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
-    const int qi = q0 + r;
-    float qx = 0.f, ox = 0.f;
-    if (qi < a.Sq) {
-      qx = to_f32(q[qi * a.qs[2] + d]);
-      ox = to_f32(o[qi * a.os[2] + d]);
-    }
-    qT[d * QS + r] = qx;
-    oT[d * QS + r] = ox;
+  const int nk = (a.Sk + TI - 1) / TI;
+  int lo = 0, hi = nk - 1;
+  while (lo <= hi && skip_tile(a, q0, lo * TI, T, TI)) ++lo;
+  while (hi >= lo && skip_tile(a, q0, hi * TI, T, TI)) --hi;
+
+  load_tile<T_, D, T, SR, NT>(Qs, q, a.qs[2], q0, a.Sq);
+  load_tile<T_, D, T, SR, NT>(Os, o, a.os[2], q0, a.Sq);
+  if (lo <= hi) {
+    load_tile<T_, D, TI, SR, NT>(Ks, k, a.ks[2], lo * TI, a.Sk);
+    load_tile<T_, D, TI, SR, NT>(Vs, v, a.vs[2], lo * TI, a.Sk);
   }
-  float lse[4], dlt[4], acc[4][C];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * ty + i;
-    lse[i] = qi < a.Sq ? a.lse[row + qi] : 0.f;
-    dlt[i] = qi < a.Sq ? a.delta[row + qi] : 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
-  }
+  cp_commit();
 
-  const int nk = (a.Sk + T - 1) / T;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * T;
-    if (a.causal && k0 > q0 + T - 1) break;
-    if (skip_tile(a, q0, k0, T)) continue;
+  float acc[NC][4];
+#pragma unroll
+  for (int n = 0; n < NC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-    __syncthreads();                // previous tile's readers are done
-    for (int idx = tid; idx < T * D; idx += NT) {
-      const int r = idx / D, d = idx % D;
-      const int kj = k0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (kj < a.Sk) {
-        kx = to_f32(k[kj * a.ks[2] + d]);
-        vx = to_f32(v[kj * a.vs[2] + d]);
-      }
-      kT[d * KS + r] = kx;
-      vT[d * KS + r] = vx;
+  for (int kt = lo; kt <= hi; ++kt) {
+    const int st = (kt - lo) & 1;
+    if (kt < hi) {                  // the next tile flies during this one
+      load_tile<T_, D, TI, SR, NT>(Ks + (st ^ 1) * TI * SR, k, a.ks[2],
+                                   (kt + 1) * TI, a.Sk);
+      load_tile<T_, D, TI, SR, NT>(Vs + (st ^ 1) * TI * SR, v, a.vs[2],
+                                   (kt + 1) * TI, a.Sk);
     }
+    cp_commit();
+    cp_wait<1>();
     __syncthreads();
+    const T_* Kt = Ks + st * TI * SR;
+    const T_* Vt = Vs + st * TI * SR;
+    const int k0 = kt * TI;
 
-    // S = q K^T and dP = dout V^T for rows 4ty+i, keys tx + 16j
-    float s[4][KJ], dp[4][KJ];
+    // S = Q K^T and dP = dO V^T for the warp's 16 rows, all TI keys
+    float s[NJ][4], dp[NJ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < KJ; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(&qT[d * QS + 4 * ty]);
-      const float4 ov = *reinterpret_cast<const float4*>(&oT[d * QS + 4 * ty]);
-      const float qr[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float orow[4] = {ov.x, ov.y, ov.z, ov.w};
-      float kk[KJ], vv[KJ];
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 1
+    for (int kk = 0; kk < D; kk += 8) {
+      uint32_t qh[4], ql[4], oh[4], ol[4];
+      frag_a<kX>(Qs, SR, r0, kk, g, t, qh, ql);
+      frag_a<kX>(Os, SR, r0, kk, g, t, oh, ol);
 #pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        kk[j] = kT[d * KS + tx + 16 * j];
-        vv[j] = vT[d * KS + tx + 16 * j];
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t bh[2], bl[2];
+        frag_b_rows_n<kX>(Kt, SR, 8 * j, kk, g, t, bh, bl);
+        mma3<kX, kX>(s[j], qh, ql, bh, bl);
+        frag_b_rows_n<kX>(Vt, SR, 8 * j, kk, g, t, bh, bl);
+        mma3<kX, kX>(dp[j], oh, ol, bh, bl);
+      }
+    }
+    // s <- scale * dS, in place
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p;
+        p_ds(a, e < 2 ? qa : qb, k0 + 8 * j + 2 * t + (e & 1), s[j][e],
+             dp[j][e], e < 2 ? lse_a : lse_b, e < 2 ? dlt_a : dlt_b, &p,
+             &s[j][e]);
+      }
+    // dq += (scale dS) K over the tile's keys: the tile's product is
+    // summed in a fresh fragment and added to dq with an f32 add
+    uint32_t ah[NJ][4], al[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) frag_a_acc(s[j], ah[j], al[j]);
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      float tile_sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t bh[2], bl[2];
+        frag_b_rows_k<kX>(Kt, SR, 8 * j, c0 + 8 * n, g, t, bh, bl);
+        mma3<false, kX>(tile_sum, ah[j], al[j], bh, bl);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < KJ; ++j) {
-          s[i][j] = fmaf(qr[i], kk[j], s[i][j]);
-          dp[i][j] = fmaf(orow[i], vv[j], dp[i][j]);
-        }
+      for (int e = 0; e < 4; ++e) acc[n][e] += tile_sum[e];
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        float p, ds;
-        p_ds(a, q0 + 4 * ty + i, k0 + tx + 16 * j, s[i][j], dp[i][j],
-             lse[i], dlt[i], &p, &ds);
-        dsS[(4 * ty + i) * PS + tx + 16 * j] = ds;
-      }
-    __syncthreads();
-
-    // dq += (scale dS) K for rows 4ty+i, columns tx + 16c
-#pragma unroll 4
-    for (int j = 0; j < T; ++j) {
-      float dsv[4], kc[C];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dsS[(4 * ty + i) * PS + j];
-#pragma unroll
-      for (int c = 0; c < C; ++c) kc[c] = kT[(tx + 16 * c) * KS + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[i][c] = fmaf(dsv[i], kc[c], acc[i][c]);
-    }
+    __syncthreads();                // this stage is refilled next
   }
+  cp_wait<0>();
 
   T_* dq = static_cast<T_*>(a.dq) + b * a.dqs[0] + h * a.dqs[1];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * ty + i;
-    if (qi >= a.Sq) continue;
+  for (int n = 0; n < NC; ++n)
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-      from_f32(&dq[qi * a.dqs[2] + tx + 16 * c], acc[i][c]);
-  }
+    for (int e = 0; e < 4; ++e) {
+      const int qi = e < 2 ? qa : qb;
+      if (qi < a.Sq)
+        from_f32(&dq[qi * a.dqs[2] + c0 + 8 * n + 2 * t + (e & 1)],
+                 acc[n][e]);
+    }
 }
 
 // ---------------------------------------------------------------------------
-// dK/dV: one block per (b, kv head g, T-row kv tile), looping over query
-// tiles and the H/Hkv heads of the group
+// dK/dV: one block per (b, query head h, T-row kv tile), looping over the
+// query tiles; the head's dK_h and dV_h go to the f32 partials (H > Hkv)
+// or straight to dk and dv (H == Hkv)
 // ---------------------------------------------------------------------------
-template <int D>
-__host__ __device__ constexpr int dkv_smem_floats() {
-  constexpr int T = tile<D>();
-  return 2 * D * (T + 4) + 2 * D * (T + 1) + 2 * T * (T + 1) + 2 * T;
+template <typename T_, int D>
+__host__ __device__ constexpr int dkv_smem_bytes() {
+  // K, V; Q and dout double-buffered; lse and delta rows double-buffered
+  return (2 * tile<D>() + 4 * kWalk) * srow<T_, D>() *
+             static_cast<int>(sizeof(T_)) +
+         4 * kWalk * static_cast<int>(sizeof(float));
 }
 
 template <typename T_, int D>
-__global__ void __launch_bounds__(4 * tile<D>())
+__global__ void __launch_bounds__(32 * n_warps<D>(), min_blocks<D>())
 flash_bwd_dkv_kernel(const Args a) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  constexpr bool kX = std::is_same<T_, __nv_bfloat16>::value;
   constexpr int T = tile<D>();
-  constexpr int NT = 4 * T;         // (T/4) key groups x 16 lanes
-  constexpr int QJ = T / 16;        // queries per thread
-  constexpr int C = D / 16;         // dk/dv columns per thread
-  constexpr int KS = T + 4;         // K^T / V^T row stride (float4)
-  constexpr int QS = T + 1;         // q^T / dout^T row stride
-  constexpr int PS = T + 1;         // P^T / dS^T row stride
+  constexpr int DW = acc_cols<D>();
+  constexpr int RG = T / 16;        // row groups of 16 keys
+  constexpr int NT = 32 * n_warps<D>();
+  constexpr int SR = srow<T_, D>();
+  constexpr int TI = kWalk;       // queries a step
+  constexpr int NJ = TI / 8;        // 8-query column tiles of S^T
+  constexpr int NC = DW / 8;        // 8-wide column tiles of dk, dv
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* kT = smem;                 // [D][KS]
-  float* vT = kT + D * KS;          // [D][KS]
-  float* qT = vT + D * KS;          // [D][QS]
-  float* oT = qT + D * QS;          // [D][QS]  dout^T
-  float* pS = oT + D * QS;          // [T keys][PS]  P^T
-  float* dsS = pS + T * PS;         // [T keys][PS]  scale * dS^T
-  float* lseS = dsS + T * PS;       // [T]
-  float* dltS = lseS + T;           // [T]
+  T_* Ks = reinterpret_cast<T_*>(smem4);    // [T][SR]
+  T_* Vs = Ks + T * SR;                     // [T][SR]
+  T_* Qs = Vs + T * SR;                     // [2][TI][SR]
+  T_* Os = Qs + 2 * TI * SR;                // [2][TI][SR] dout
+  float* lseS = reinterpret_cast<float*>(Os + 2 * TI * SR);  // [2][TI]
+  float* dltS = lseS + 2 * TI;                               // [2][TI]
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;          // query / column group
-  const int ty = tid >> 4;          // keys 4ty .. 4ty+3
-  const int b = blockIdx.z;
-  const int g = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (warp % RG);          // the warp's keys
+  const int c0 = DW * (warp / RG);          // and dk/dv columns
+  // heaviest first: under causal masking the first kv tile of every
+  // (b, h) walks the most query tiles, so those blocks lead
+  const int BH = a.B * a.H;
+  const int rank = blockIdx.x / BH, bhi = blockIdx.x % BH;
+  const int h = bhi % a.H, b = bhi / a.H;
   const int rep = a.H / a.Hkv;
-  const int k0 = blockIdx.x * T;
+  const int hk = h / rep;           // = h * Hkv / H, the reference's map
+  const int k0 = rank * T;
 
-  const T_* k = static_cast<const T_*>(a.k) + b * a.ks[0] + g * a.ks[1];
-  const T_* v = static_cast<const T_*>(a.v) + b * a.vs[0] + g * a.vs[1];
-  for (int idx = tid; idx < T * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
-    const int kj = k0 + r;
-    float kx = 0.f, vx = 0.f;
-    if (kj < a.Sk) {
-      kx = to_f32(k[kj * a.ks[2] + d]);
-      vx = to_f32(v[kj * a.vs[2] + d]);
+  const T_* q = static_cast<const T_*>(a.q) + b * a.qs[0] + h * a.qs[1];
+  const T_* o = static_cast<const T_*>(a.dout) + b * a.os[0] + h * a.os[1];
+  const T_* k = static_cast<const T_*>(a.k) + b * a.ks[0] + hk * a.ks[1];
+  const T_* v = static_cast<const T_*>(a.v) + b * a.vs[0] + hk * a.vs[1];
+  const float* lse = a.lse + ((int64_t)b * a.H + h) * a.Sq;
+  const float* dlt = a.delta + ((int64_t)b * a.H + h) * a.Sq;
+  const int ka = k0 + r0 + g, kb = ka + 8;  // this thread's two keys
+
+  const int nq = (a.Sq + TI - 1) / TI;
+  int lo = 0, hi = nq - 1;
+  while (lo <= hi && skip_tile(a, lo * TI, k0, TI, T)) ++lo;
+  while (hi >= lo && skip_tile(a, hi * TI, k0, TI, T)) --hi;
+
+  // the query tile qt (rows, lse, delta) into stage st
+  auto load_q = [&](int qt, int st) {
+    const int q0 = qt * TI;
+    load_tile<T_, D, TI, SR, NT>(Qs + st * TI * SR, q, a.qs[2], q0, a.Sq);
+    load_tile<T_, D, TI, SR, NT>(Os + st * TI * SR, o, a.os[2], q0, a.Sq);
+    for (int i = threadIdx.x; i < TI; i += NT) {
+      const bool in = q0 + i < a.Sq;
+      cp4(lseS + st * TI + i, in ? lse + q0 + i : lse, in);
+      cp4(dltS + st * TI + i, in ? dlt + q0 + i : dlt, in);
     }
-    kT[d * KS + r] = kx;
-    vT[d * KS + r] = vx;
+  };
+  load_tile<T_, D, T, SR, NT>(Ks, k, a.ks[2], k0, a.Sk);
+  load_tile<T_, D, T, SR, NT>(Vs, v, a.vs[2], k0, a.Sk);
+  if (lo <= hi) load_q(lo, 0);
+  cp_commit();
+
+  float dk[NC][4], dv[NC][4];
+#pragma unroll
+  for (int n = 0; n < NC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int qt = lo; qt <= hi; ++qt) {
+    const int st = (qt - lo) & 1;
+    if (qt < hi) load_q(qt + 1, st ^ 1);    // in flight during this tile
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const T_* Qt = Qs + st * TI * SR;
+    const T_* Ot = Os + st * TI * SR;
+    const float* lt = lseS + st * TI;
+    const float* dt = dltS + st * TI;
+    const int q0 = qt * TI;
+
+    // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys, all TI queries
+    float s[NJ][4], dp[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 1
+    for (int kk = 0; kk < D; kk += 8) {
+      uint32_t kh[4], kl[4], vh[4], vl[4];
+      frag_a<kX>(Ks, SR, r0, kk, g, t, kh, kl);
+      frag_a<kX>(Vs, SR, r0, kk, g, t, vh, vl);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t bh[2], bl[2];
+        frag_b_rows_n<kX>(Qt, SR, 8 * j, kk, g, t, bh, bl);
+        mma3<kX, kX>(s[j], kh, kl, bh, bl);
+        frag_b_rows_n<kX>(Ot, SR, 8 * j, kk, g, t, bh, bl);
+        mma3<kX, kX>(dp[j], vh, vl, bh, bl);
+      }
+    }
+    // s <- P^T, dp <- scale * dS^T, in place
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int il = 8 * j + 2 * t + (e & 1);
+        p_ds(a, q0 + il, e < 2 ? ka : kb, s[j][e], dp[j][e], lt[il], dt[il],
+             &s[j][e], &dp[j][e]);
+      }
+    // dv += P^T dO and dk += (scale dS)^T Q over the tile's queries: the
+    // tile's products are summed in fresh fragments and added with f32
+    // adds, half of the columns at a time (registers)
+    constexpr int NH = NC >= 4 ? NC / 2 : NC;
+#pragma unroll
+    for (int n0 = 0; n0 < NC; n0 += NH) {
+      float sv[NH][4], sk[NH][4];
+#pragma unroll
+      for (int n = 0; n < NH; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sv[n][e] = sk[n][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t ph[4], pl[4], dh[4], dl[4];
+        frag_a_acc(s[j], ph, pl);
+        frag_a_acc(dp[j], dh, dl);
+#pragma unroll
+        for (int n = 0; n < NH; ++n) {
+          uint32_t bh[2], bl[2];
+          frag_b_rows_k<kX>(Ot, SR, 8 * j, c0 + 8 * (n0 + n), g, t, bh, bl);
+          mma3<false, kX>(sv[n], ph, pl, bh, bl);
+          frag_b_rows_k<kX>(Qt, SR, 8 * j, c0 + 8 * (n0 + n), g, t, bh, bl);
+          mma3<false, kX>(sk[n], dh, dl, bh, bl);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NH; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dv[n0 + n][e] += sv[n][e];
+          dk[n0 + n][e] += sk[n][e];
+        }
+    }
+    __syncthreads();                // this stage is refilled next
   }
+  cp_wait<0>();
 
-  float dk[4][C], dv[4][C];
+  if (rep > 1) {                    // the head's f32 partials
+    const int64_t per = (int64_t)a.B * a.H * a.Sk * D;
+    float* pk = a.part + ((int64_t)b * a.H + h) * a.Sk * D;
+    float* pv = pk + per;
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+    for (int n = 0; n < NC; ++n)
 #pragma unroll
-    for (int c = 0; c < C; ++c) dk[j][c] = dv[j][c] = 0.f;
-
-  const int nq = (a.Sq + T - 1) / T;
-  for (int qt = 0; qt < nq; ++qt) {
-    const int q0 = qt * T;
-    if (skip_tile(a, q0, k0, T)) continue;
-    for (int r = 0; r < rep; ++r) {
-      const int h = g * rep + r;
-      const T_* q = static_cast<const T_*>(a.q) + b * a.qs[0] + h * a.qs[1];
-      const T_* o =
-          static_cast<const T_*>(a.dout) + b * a.os[0] + h * a.os[1];
-      const int64_t row = ((int64_t)b * a.H + h) * a.Sq;
-
-      __syncthreads();              // previous head's readers are done
-      for (int idx = tid; idx < T * D; idx += NT) {
-        const int i = idx / D, d = idx % D;
-        const int qi = q0 + i;
-        float qx = 0.f, ox = 0.f;
-        if (qi < a.Sq) {
-          qx = to_f32(q[qi * a.qs[2] + d]);
-          ox = to_f32(o[qi * a.os[2] + d]);
+      for (int e = 0; e < 4; ++e) {
+        const int kj = e < 2 ? ka : kb;
+        if (kj < a.Sk) {
+          const int64_t i = (int64_t)kj * D + c0 + 8 * n + 2 * t + (e & 1);
+          pk[i] = dk[n][e];
+          pv[i] = dv[n][e];
         }
-        qT[d * QS + i] = qx;
-        oT[d * QS + i] = ox;
       }
-      for (int i = tid; i < T; i += NT) {
-        const int qi = q0 + i;
-        lseS[i] = qi < a.Sq ? a.lse[row + qi] : 0.f;
-        dltS[i] = qi < a.Sq ? a.delta[row + qi] : 0.f;
+  } else {
+    T_* dkp = static_cast<T_*>(a.dk) + b * a.dks[0] + hk * a.dks[1];
+    T_* dvp = static_cast<T_*>(a.dv) + b * a.dvs[0] + hk * a.dvs[1];
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = e < 2 ? ka : kb;
+        const int col = c0 + 8 * n + 2 * t + (e & 1);
+        if (kj < a.Sk) {
+          from_f32(&dkp[kj * a.dks[2] + col], dk[n][e]);
+          from_f32(&dvp[kj * a.dvs[2] + col], dv[n][e]);
+        }
       }
-      __syncthreads();
-
-      // S^T = K q^T and dP^T = V dout^T for keys 4ty+jj, queries tx + 16i
-      float s[4][QJ], dp[4][QJ];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int i = 0; i < QJ; ++i) s[jj][i] = dp[jj][i] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        const float4 kv4 =
-            *reinterpret_cast<const float4*>(&kT[d * KS + 4 * ty]);
-        const float4 vv4 =
-            *reinterpret_cast<const float4*>(&vT[d * KS + 4 * ty]);
-        const float kr[4] = {kv4.x, kv4.y, kv4.z, kv4.w};
-        const float vr[4] = {vv4.x, vv4.y, vv4.z, vv4.w};
-        float qq[QJ], oo[QJ];
-#pragma unroll
-        for (int i = 0; i < QJ; ++i) {
-          qq[i] = qT[d * QS + tx + 16 * i];
-          oo[i] = oT[d * QS + tx + 16 * i];
-        }
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-          for (int i = 0; i < QJ; ++i) {
-            s[jj][i] = fmaf(qq[i], kr[jj], s[jj][i]);
-            dp[jj][i] = fmaf(oo[i], vr[jj], dp[jj][i]);
-          }
-      }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int i = 0; i < QJ; ++i) {
-          const int il = tx + 16 * i;
-          float p, ds;
-          p_ds(a, q0 + il, k0 + 4 * ty + jj, s[jj][i], dp[jj][i], lseS[il],
-               dltS[il], &p, &ds);
-          pS[(4 * ty + jj) * PS + il] = p;
-          dsS[(4 * ty + jj) * PS + il] = ds;
-        }
-      __syncthreads();
-
-      // dv += P^T dout and dk += (scale dS)^T q for keys 4ty+jj,
-      // columns tx + 16c
-#pragma unroll 4
-      for (int i = 0; i < T; ++i) {
-        float pv[4], dsv[4], oc[C], qc[C];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          pv[jj] = pS[(4 * ty + jj) * PS + i];
-          dsv[jj] = dsS[(4 * ty + jj) * PS + i];
-        }
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          oc[c] = oT[(tx + 16 * c) * QS + i];
-          qc[c] = qT[(tx + 16 * c) * QS + i];
-        }
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            dv[jj][c] = fmaf(pv[jj], oc[c], dv[jj][c]);
-            dk[jj][c] = fmaf(dsv[jj], qc[c], dk[jj][c]);
-          }
-      }
-    }
   }
+}
 
-  T_* dkp = static_cast<T_*>(a.dk) + b * a.dks[0] + g * a.dks[1];
-  T_* dvp = static_cast<T_*>(a.dv) + b * a.dvs[0] + g * a.dvs[1];
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj) {
-    const int kj = k0 + 4 * ty + jj;
-    if (kj >= a.Sk) continue;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      from_f32(&dkp[kj * a.dks[2] + tx + 16 * c], dk[jj][c]);
-      from_f32(&dvp[kj * a.dvs[2] + tx + 16 * c], dv[jj][c]);
+// ---------------------------------------------------------------------------
+// group sum: dk/dv[b, g] = sum_{r = 0..rep-1} partial[b, g*rep + r], in
+// that order, in f32, rounded once to the output dtype
+// ---------------------------------------------------------------------------
+struct SumArgs {
+  const float* part;                // (2, B, H, Sk, D) f32 contiguous
+  void* dk;
+  void* dv;
+  int B, H, Hkv, Sk, D;
+  int64_t dks[3], dvs[3];
+};
+
+template <typename T_>
+__global__ void __launch_bounds__(256)
+flash_bwd_dkv_group_sum_kernel(const SumArgs a) {
+  const int rep = a.H / a.Hkv;
+  const int D4 = a.D / 4;
+  const int64_t n4 = (int64_t)a.B * a.Hkv * a.Sk * D4;   // float4s a tensor
+  const int64_t per = (int64_t)a.B * a.H * a.Sk * a.D;
+  const int64_t head = (int64_t)a.Sk * a.D;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+       i < 2 * n4; i += (int64_t)gridDim.x * blockDim.x) {
+    const int which = i >= n4;      // 0: dk, 1: dv
+    int64_t r = which ? i - n4 : i;
+    const int d = static_cast<int>(r % D4) * 4;
+    r /= D4;
+    const int s = static_cast<int>(r % a.Sk);
+    r /= a.Sk;
+    const int gk = static_cast<int>(r % a.Hkv);
+    const int b = static_cast<int>(r / a.Hkv);
+    const float* src = a.part + which * per +
+                       (((int64_t)b * a.H + gk * rep) * a.Sk + s) * a.D + d;
+    float4 acc = *reinterpret_cast<const float4*>(src);
+    for (int m = 1; m < rep; ++m) {
+      const float4 x = *reinterpret_cast<const float4*>(src + m * head);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
     }
+    // (selected element by element: an indexed parameter array would be
+    // copied to local memory)
+    T_* out = static_cast<T_*>(which ? a.dv : a.dk) +
+              b * (which ? a.dvs[0] : a.dks[0]) +
+              gk * (which ? a.dvs[1] : a.dks[1]) +
+              s * (which ? a.dvs[2] : a.dks[2]) + d;
+    from_f32(out, acc.x);
+    from_f32(out + 1, acc.y);
+    from_f32(out + 2, acc.z);
+    from_f32(out + 3, acc.w);
   }
 }
 
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
+// above 48 KB only after opting in, and the whole carveout as shared
+// memory so that three blocks fit an SM (D <= 64); once per instantiation
+template <typename K>
+cudaError_t opt_in(K kernel, int bytes) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
 template <typename T_, int D>
-int launch_dq(const Args& a, int B, cudaStream_t stream) {
-  constexpr int T = tile<D>();
-  constexpr int bytes = dq_smem_floats<D>() * sizeof(float);
-  // above 48 KB only after opting in; once per instantiation
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T_, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+int launch_dq(const Args& a, cudaStream_t stream) {
+  constexpr int bytes = dq_smem_bytes<T_, D>();
+  static const cudaError_t attr = opt_in(flash_bwd_dq_kernel<T_, D>, bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((a.Sq + T - 1) / T, a.H, B);
-  flash_bwd_dq_kernel<T_, D><<<grid, 4 * T, bytes, stream>>>(a);
+  const int64_t blocks =
+      (int64_t)((a.Sq + tile<D>() - 1) / tile<D>()) * a.H * a.B;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_dq_kernel<T_, D>
+      <<<static_cast<unsigned>(blocks), 32 * n_warps<D>(), bytes, stream>>>(
+          a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T_, int D>
-int launch_dkv(const Args& a, int B, cudaStream_t stream) {
-  constexpr int T = tile<D>();
-  constexpr int bytes = dkv_smem_floats<D>() * sizeof(float);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T_, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+int launch_dkv(const Args& a, cudaStream_t stream) {
+  constexpr int bytes = dkv_smem_bytes<T_, D>();
+  static const cudaError_t attr = opt_in(flash_bwd_dkv_kernel<T_, D>, bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((a.Sk + T - 1) / T, a.Hkv, B);
-  flash_bwd_dkv_kernel<T_, D><<<grid, 4 * T, bytes, stream>>>(a);
+  const int64_t blocks =
+      (int64_t)((a.Sk + tile<D>() - 1) / tile<D>()) * a.H * a.B;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_dkv_kernel<T_, D>
+      <<<static_cast<unsigned>(blocks), 32 * n_warps<D>(), bytes, stream>>>(
+          a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kDq, typename T_>
-int dispatch_d(int D, const Args& a, int B, cudaStream_t s) {
+int dispatch_d(int D, const Args& a, cudaStream_t s) {
   switch (D) {
-    case 16: return kDq ? launch_dq<T_, 16>(a, B, s) : launch_dkv<T_, 16>(a, B, s);
-    case 32: return kDq ? launch_dq<T_, 32>(a, B, s) : launch_dkv<T_, 32>(a, B, s);
-    case 64: return kDq ? launch_dq<T_, 64>(a, B, s) : launch_dkv<T_, 64>(a, B, s);
-    case 128: return kDq ? launch_dq<T_, 128>(a, B, s) : launch_dkv<T_, 128>(a, B, s);
-    case 256: return kDq ? launch_dq<T_, 256>(a, B, s) : launch_dkv<T_, 256>(a, B, s);
+    case 16: return kDq ? launch_dq<T_, 16>(a, s) : launch_dkv<T_, 16>(a, s);
+    case 32: return kDq ? launch_dq<T_, 32>(a, s) : launch_dkv<T_, 32>(a, s);
+    case 64: return kDq ? launch_dq<T_, 64>(a, s) : launch_dkv<T_, 64>(a, s);
+    case 128: return kDq ? launch_dq<T_, 128>(a, s) : launch_dkv<T_, 128>(a, s);
+    case 256: return kDq ? launch_dq<T_, 256>(a, s) : launch_dkv<T_, 256>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -486,13 +752,13 @@ int dispatch_d(int D, const Args& a, int B, cudaStream_t s) {
 template <bool kDq>
 int launch(int dtype, int D, const void* q, const void* k, const void* v,
            const void* dout, const float* lse, const float* delta, void* dq,
-           void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk,
-           const long long* strides, float scale, float cap, int causal,
-           int window, void* stream) {
+           void* dk, void* dv, float* part, int B, int H, int Hkv, int Sq,
+           int Sk, const long long* strides, float scale, float cap,
+           int causal, int window, void* stream) {
   Args a;
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
-  a.dq = dq; a.dk = dk; a.dv = dv;
-  a.H = H; a.Hkv = Hkv; a.Sq = Sq; a.Sk = Sk;
+  a.dq = dq; a.dk = dk; a.dv = dv; a.part = part;
+  a.B = B; a.H = H; a.Hkv = Hkv; a.Sq = Sq; a.Sk = Sk;
   for (int i = 0; i < 3; ++i) {
     a.qs[i] = strides[i];
     a.ks[i] = strides[3 + i];
@@ -504,37 +770,74 @@ int launch(int dtype, int D, const void* q, const void* k, const void* v,
   }
   a.scale = scale; a.cap = cap; a.causal = causal; a.window = window;
   // an empty grid is no launch (dq of Sq = 0, dk/dv of Sk = 0)
-  if (B == 0 || (kDq ? (Sq == 0 || H == 0) : (Sk == 0 || Hkv == 0)))
-    return 0;
+  if (B == 0 || H == 0 || (kDq ? Sq == 0 : Sk == 0)) return 0;
+  if (Hkv <= 0 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  // dK/dV of a GQA group needs the partials' scratch
+  if (!kDq && H > Hkv && part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<kDq, float>(D, a, B, s);
-  if (dtype == 1) return dispatch_d<kDq, __nv_bfloat16>(D, a, B, s);
+  if (dtype == 0) return dispatch_d<kDq, float>(D, a, s);
+  if (dtype == 1) return dispatch_d<kDq, __nv_bfloat16>(D, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  strides: 21 element strides, [batch,
-// head, seq] of q, k, v, dout, dq, dk and dv in that order.  lse and
-// delta are (B, H, Sq) contiguous f32.  Head dims: 16, 32, 64, 128, 256.
-// The dQ launch writes dq only; the dK/dV launch writes dk and dv only.
+// head, seq] of q, k, v, dout, dq, dk and dv in that order, each a
+// multiple of 16 bytes for q, k, v and dout, whose data must be 16-byte
+// aligned.  lse and delta are (B, H, Sq) contiguous f32.  Head dims: 16,
+// 32, 64, 128, 256.  The dQ launch writes dq only.
 extern "C" int flash_attention_bwd_dq_launch(
     int dtype, int D, const void* q, const void* k, const void* v,
     const void* dout, const float* lse, const float* delta, void* dq,
     int B, int H, int Hkv, int Sq, int Sk, const long long* strides,
     float scale, float cap, int causal, int window, void* stream) {
   return launch<true>(dtype, D, q, k, v, dout, lse, delta, dq, nullptr,
-                      nullptr, B, H, Hkv, Sq, Sk, strides, scale, cap,
-                      causal, window, stream);
+                      nullptr, nullptr, B, H, Hkv, Sq, Sk, strides, scale,
+                      cap, causal, window, stream);
 }
 
+// The dK/dV launch: with H == Hkv it writes dk and dv (part unused, may
+// be null); with H > Hkv it writes only part, a 16-byte aligned f32
+// (2, B, H, Sk, D) contiguous scratch (dk partials, then dv partials), and
+// flash_attention_bwd_group_sum_launch then writes dk and dv.
 extern "C" int flash_attention_bwd_dkv_launch(
     int dtype, int D, const void* q, const void* k, const void* v,
     const void* dout, const float* lse, const float* delta, void* dk,
-    void* dv, int B, int H, int Hkv, int Sq, int Sk,
+    void* dv, float* part, int B, int H, int Hkv, int Sq, int Sk,
     const long long* strides, float scale, float cap, int causal,
     int window, void* stream) {
   return launch<false>(dtype, D, q, k, v, dout, lse, delta, nullptr, dk, dv,
-                       B, H, Hkv, Sq, Sk, strides, scale, cap, causal, window,
-                       stream);
+                       part, B, H, Hkv, Sq, Sk, strides, scale, cap, causal,
+                       window, stream);
+}
+
+// dk, dv (B, Hkv, Sk, D) from the partials of the dK/dV launch; strides:
+// 6 element strides, [batch, head, seq] of dk then dv.
+extern "C" int flash_attention_bwd_group_sum_launch(
+    int dtype, int D, const float* part, void* dk, void* dv, int B, int H,
+    int Hkv, int Sk, const long long* strides, void* stream) {
+  if (B == 0 || Hkv == 0 || Sk == 0) return 0;
+  if (D % 4 != 0 || H % Hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SumArgs a;
+  a.part = part; a.dk = dk; a.dv = dv;
+  a.B = B; a.H = H; a.Hkv = Hkv; a.Sk = Sk; a.D = D;
+  for (int i = 0; i < 3; ++i) {
+    a.dks[i] = strides[i];
+    a.dvs[i] = strides[3 + i];
+  }
+  const int64_t n = 2 * (int64_t)B * Hkv * Sk * (D / 4);
+  const int64_t blocks64 = (n + 255) / 256;
+  const unsigned blocks =
+      static_cast<unsigned>(blocks64 < 65535 * 16 ? blocks64 : 65535 * 16);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    flash_bwd_dkv_group_sum_kernel<float><<<blocks, 256, 0, s>>>(a);
+  else if (dtype == 1)
+    flash_bwd_dkv_group_sum_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(a);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }

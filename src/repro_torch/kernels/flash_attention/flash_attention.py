@@ -6,10 +6,11 @@ causal (or full) attention with an online softmax, optional sliding
 window, GQA through the head map ``h*Hkv//H`` and optional logit softcap,
 emitting the per-row log-sum-exp.  The two backward kernels
 (``csrc/flash_attention_bwd.cu``, a library of its own) replace the TPU
-kernel ``flash_attention_bwd``: one computes dQ, the other dK and dV with
-each GQA group summed inside the kernel.  All are bound by f32
-arithmetic on the CUDA cores; the sources' headers say how the designs
-meet that.
+kernel ``flash_attention_bwd``: one computes dQ, the other dK and dV per
+query head, and with GQA a third sums each group's per-head f32 partials
+in a fixed order.  The forward computes in f32 on the CUDA cores, the
+backward on the tensor cores in 3xTF32 (f32 accuracy); the sources'
+headers say how the designs meet their bounds.
 
 q (B,H,Sq,D) and k/v (B,Hkv,Sk,D) may be any strided views whose last
 dimension is contiguous (``ops.flash_attention`` hands them transposed
@@ -149,18 +150,36 @@ def _bwd_launch_fns():
     tail = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong),
                                  ctypes.c_float, ctypes.c_float,
                                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    dq, dkv = lib.flash_attention_bwd_dq_launch, \
-        lib.flash_attention_bwd_dkv_launch
+    dq, dkv, gsum = lib.flash_attention_bwd_dq_launch, \
+        lib.flash_attention_bwd_dkv_launch, \
+        lib.flash_attention_bwd_group_sum_launch
     dq.argtypes = common + [ctypes.c_void_p] + tail
-    dkv.argtypes = common + [ctypes.c_void_p] * 2 + tail
-    dq.restype = dkv.restype = ctypes.c_int
-    return dq, dkv
+    dkv.argtypes = common + [ctypes.c_void_p] * 3 + tail
+    gsum.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 \
+        + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong),
+                                ctypes.c_void_p]
+    dq.restype = dkv.restype = gsum.restype = ctypes.c_int
+    return dq, dkv, gsum
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where the backward kernels' 16-byte copies can read it
+    (data and every batch, head and row stride 16-byte aligned), else a
+    contiguous copy."""
+    n = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(
+            t.stride(i) * n % 16 == 0 or t.shape[i] == 1 for i in range(3)):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _bwd_launch(which: str, q, k, v, dout, lse, delta, outs, causal,
-                window, scale, logit_cap) -> None:
+                window, scale, logit_cap, part=None) -> None:
     """One launch of the dQ (``outs`` = [dq]) or dK/dV (``outs`` = [dk,
-    dv]) kernel; raises on a non-zero CUDA code."""
+    dv]) kernel; raises on a non-zero CUDA code.  With H > Hkv the dK/dV
+    kernel writes only ``part``, a (2, B, H, Sk, D) contiguous f32 scratch
+    of per-head partials, which ``_group_sum_launch`` then sums into dk
+    and dv; with H == Hkv it writes dk and dv and takes no scratch."""
     _check_cuda(q, k, v)
     _no_graph(f"flash_attention_bwd_{which}", q, k, v, dout, lse, delta)
     if dout.stride(3) != 1 or lse.dtype != torch.float32 \
@@ -169,19 +188,59 @@ def _bwd_launch(which: str, q, k, v, dout, lse, delta, outs, causal,
         raise ValueError("the backward kernels take dout with a contiguous "
                          "last dimension and contiguous f32 lse and delta")
     B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if which == "dkv" and (part is not None) != (H > Hkv):
+        raise ValueError("the dK/dV kernel takes a partials scratch exactly "
+                         "when H > Hkv")
+    if part is not None and (part.shape != (2, B, H, Sk, D)
+                             or part.dtype != torch.float32
+                             or not part.is_contiguous()
+                             or part.device != q.device):
+        raise ValueError(f"part must be contiguous float32 "
+                         f"{(2, B, H, Sk, D)} on {q.device}")
+    q, k, v, dout = (_aligned(t) for t in (q, k, v, dout))
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    fn = _bwd_launch_fns()[0 if which == "dq" else 1]
+    fns = _bwd_launch_fns()
     strides = _strides(q, k, v, dout, *(
         [outs[0], k, v] if which == "dq" else [q, *outs]))
+    ptrs = [t.data_ptr() for t in (q, k, v, dout, lse, delta, *outs)]
+    if which == "dkv":
+        ptrs.append(part.data_ptr() if part is not None else None)
     with torch.cuda.device(q.device):
-        err = fn(_DTYPE_CODES[q.dtype], D,
-                 *[t.data_ptr() for t in (q, k, v, dout, lse, delta, *outs)],
-                 B, H, k.shape[1], Sq, k.shape[2], strides, float(scale),
-                 float(logit_cap), int(causal), int(window),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+        err = fns[0 if which == "dq" else 1](
+            _DTYPE_CODES[q.dtype], D, *ptrs, B, H, Hkv, Sq, Sk, strides,
+            float(scale), float(logit_cap), int(causal), int(window),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention {which} kernel launch failed: "
                            f"CUDA error {err}")
+
+
+def _group_sum_launch(part, dk, dv) -> None:
+    """One launch of the group-sum kernel: dk and dv (B,Hkv,Sk,D), written
+    through their strides, each the sum of its group's H/Hkv partials in
+    ``part`` (2,B,H,Sk,D) f32, taken in the order r = 0..rep-1 and rounded
+    once to dk's dtype; raises on a non-zero CUDA code."""
+    B, Hkv, Sk, D = dk.shape
+    if dv.shape != dk.shape or dv.dtype != dk.dtype \
+            or part.shape[:2] != (2, B) or part.shape[3:] != (Sk, D) \
+            or part.shape[2] % Hkv or part.dtype != torch.float32 \
+            or not part.is_contiguous() or dk.stride(3) != 1 \
+            or dv.stride(3) != 1 or dk.device.type != "cuda" \
+            or not part.device == dk.device == dv.device:
+        raise ValueError(f"the group sum takes (2,B,H,Sk,D) contiguous f32 "
+                         f"partials and dk, dv (B,Hkv,Sk,D) with contiguous "
+                         f"rows, on one card, got {tuple(part.shape)} "
+                         f"{part.dtype} on {part.device}, {tuple(dk.shape)} "
+                         f"on {dk.device}, {tuple(dv.shape)} on {dv.device}")
+    with torch.cuda.device(dk.device):
+        err = _bwd_launch_fns()[2](
+            _DTYPE_CODES[dk.dtype], D, part.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, part.shape[2], Hkv, Sk, _strides(dk, dv),
+            torch.cuda.current_stream(dk.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention group-sum kernel launch "
+                           f"failed: CUDA error {err}")
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal=True,
@@ -199,13 +258,24 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal=True,
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, causal=True,
                             window=0, scale=None, logit_cap=0.0):
-    """The dK/dV kernel alone, on the card: (dk, dv) in the dtypes and
-    layouts of k and v, each GQA group summed in the kernel.  Counted in
-    ``flash_attention_bwd.launches_dkv``."""
+    """The dK/dV kernels alone, on the card: (dk, dv) in the dtypes and
+    layouts of k and v.  With H == Hkv one launch of the dK/dV kernel;
+    with H > Hkv that launch writes each query head's f32 partials to a
+    scratch and a launch of the group-sum kernel sums each GQA group in a
+    fixed order.  Counted in ``flash_attention_bwd.launches_dkv`` and
+    ``flash_attention_bwd.launches_group_sum``."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    B, H, _, D = q.shape
+    part = None
+    if H > k.shape[1]:
+        part = torch.empty(2, B, H, k.shape[2], D, dtype=torch.float32,
+                           device=q.device)
     _bwd_launch("dkv", q, k, v, dout, lse, delta, [dk, dv], causal, window,
-                scale, logit_cap)
+                scale, logit_cap, part)
     flash_attention_bwd.launches_dkv += 1
+    if part is not None:
+        _group_sum_launch(part, dk, dv)
+        flash_attention_bwd.launches_group_sum += 1
     return dk, dv
 
 
@@ -218,7 +288,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B,H,Sq) f32 from the forward.  Returns (dq, dk, dv) in the dtypes and
     memory layouts of q, k and v: on the card one launch of the dQ kernel
     and one of the dK/dV kernel, counted in ``launches_dq`` and
-    ``launches_dkv``.
+    ``launches_dkv``, and with H > Hkv one of the group-sum kernel,
+    counted in ``launches_group_sum``.
 
     δ = rowsum(dO·O) is one plain f32 reduction here, as the reference
     takes it outside its kernels.  ``dout`` may come from autograd with
@@ -253,3 +324,4 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_bwd.launches_dq = 0
 flash_attention_bwd.launches_dkv = 0
+flash_attention_bwd.launches_group_sum = 0

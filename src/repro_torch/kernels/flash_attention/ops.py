@@ -3,8 +3,9 @@ backward: twin of ``repro/kernels/flash_attention/ops.py``.
 
 ``_FlashAttention`` is the twin of the reference's ``custom_vjp``: its
 forward emits (out, lse) through ``flash_attention_fwd``, its backward
-runs the two backward kernels through ``flash_attention_bwd`` (dQ; dK/dV
-with the GQA group summed in the kernel), so no (S, S) residual is kept.
+runs the backward kernels through ``flash_attention_bwd`` (dQ; dK/dV per
+query head, each GQA group then summed by the group-sum kernel), so no
+(S, S) residual is kept.
 
 q (B,S,H,D) and k/v (B,S,Hkv,D) with unrepeated KV heads go to the
 kernels as transposed views of the same memory, and the output comes

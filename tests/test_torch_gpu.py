@@ -17,11 +17,13 @@ SSD scan: the kernel against the plain chunked op and the sequential
 recurrence 2e-5·(1+max|ref|) (bf16 inputs: one bf16 ulp on top), two
 launches bitwise equal; reduced mamba2-780m prefill + decode CPU vs card
 ≤1e-5·(1+max|ref|), tokens equal.
-Flash backward: the dQ and dK/dV kernels against the plain backward at
-the forward's bounds, and two launches bitwise equal; reduced qwen2-0.5b
-fused steps CPU vs card ≤1e-5·(1+max|ref|) per parameter leaf and per
-gradient leaf.  Every kernel, launched into an output between NaN
-guards, writes all of its output and nothing outside it.
+Flash backward: the dQ and dK/dV kernels (3xTF32 on the tensor cores,
+dK/dV per query head with a group-sum pass when H > Hkv) against the
+plain backward at the forward's bounds, and two launches bitwise equal;
+reduced qwen2-0.5b fused steps CPU vs card ≤1e-5·(1+max|ref|) per
+parameter leaf and per gradient leaf.  Every kernel, launched into an
+output (and the partials' scratch) between NaN guards, writes all of it
+and nothing outside it.
 """
 import numpy as np
 import pytest
@@ -330,13 +332,23 @@ def test_prefill_on_card_launches_and_matches_cpu(cuda):
 # ---------------------------------------------------------------------------
 FLASH_BWD_CASES = [
     # the reference's backward cases (tests/test_kernels.py), then
-    # FLASH_CASES, qwen2-0.5b's training shape (B = 8) and a bf16 D = 128
+    # FLASH_CASES, qwen2-0.5b's training shape (B = 8) and a bf16 D = 128;
+    # then the dK/dV grid's three regimes, each at a tile multiple and
+    # ragged, f32 and bf16: rep = 1 (the kernel writes dk and dv, no group
+    # sum), rep = 8 and rep = 14 (MQA: per-head partials, then one
+    # group-sum launch a call); and qwen2-0.5b's heads at long S, where a
+    # sum chained through the tensor cores' accumulator over the whole
+    # walk would miss the bound (the kernels sum each walked tile apart)
     (1, 4, 2, 128, 32, 0, 0.0, "float32"),
     (1, 4, 2, 160, 32, 48, 0.0, "float32"),
     (1, 2, 1, 96, 16, 0, 30.0, "float32"),
     *FLASH_CASES,
     (8, 14, 2, 512, 64, 0, 0.0, "float32"),
     (1, 4, 2, 130, 128, 0, 0.0, "bfloat16"),
+    *[(2, H, Hkv, S, 64, 0, 0.0, dtype)
+      for H, Hkv in ((4, 4), (16, 2), (14, 1)) for S in (256, 200)
+      for dtype in ("float32", "bfloat16")],
+    *[(1, 14, 2, S, 64, 0, 0.0, "float32") for S in (2048, 4096)],
 ]
 
 
@@ -349,26 +361,50 @@ def test_flash_bwd_kernels_match_plain(cuda, B, H, Hkv, S, D, win, cap,
                                        dtype, causal):
     """dQ and dK/dV against the plain backward on the same inputs, in the
     model's layout through strides; each gradient takes its input's
-    layout; a second launch gives the same bits."""
+    layout; a second launch gives the same bits; the group sum runs once
+    a call exactly when H > Hkv."""
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda).manual_seed(S * D + H + 1)
     q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device=cuda)
                    .to(tdt).transpose(1, 2) for h in (H, Hkv, Hkv, H))
     kw = dict(causal=causal, window=win, logit_cap=cap)
     out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
-    before = (fa.flash_attention_bwd.launches_dq,
-              fa.flash_attention_bwd.launches_dkv)
-    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
-    again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    bwd = fa.flash_attention_bwd
+    before = (bwd.launches_dq, bwd.launches_dkv, bwd.launches_group_sum)
+    got = bwd(q, k, v, out, lse, do, **kw)
+    again = bwd(q, k, v, out, lse, do, **kw)
     ref = attention_bwd_ref(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
-    assert (fa.flash_attention_bwd.launches_dq,
-            fa.flash_attention_bwd.launches_dkv) == \
-        (before[0] + 2, before[1] + 2)
+    assert (bwd.launches_dq - before[0], bwd.launches_dkv - before[1],
+            bwd.launches_group_sum - before[2]) == \
+        (2, 2, 2 if H > Hkv else 0)
     for g, g2, r, x in zip(got, again, ref, (q, k, v)):
         assert g.dtype == tdt and g.stride() == x.stride()
         assert torch.equal(g, g2)
         _assert_close(g, r, rel=2e-5)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_reads_unaligned_inputs(cuda):
+    """Inputs the kernels' 16-byte copies cannot read (a view 4 bytes past
+    an aligned start) are copied first: the gradients equal those of the
+    aligned inputs bit for bit, in the inputs' layouts."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    B, S, H, Hkv, D = 2, 100, 4, 2, 64
+    q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device=cuda)
+                   .transpose(1, 2) for h in (H, Hkv, Hkv, H))
+
+    def shifted(x):
+        flat = torch.empty(x.numel() + 1, device=cuda)[1:]
+        return flat.view(B, S, x.shape[1], D).transpose(1, 2).copy_(x)
+
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    want = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    odd = [shifted(x) for x in (q, k, v, do)]
+    assert all(x.data_ptr() % 16 for x in odd)
+    got = fa.flash_attention_bwd(odd[0], odd[1], odd[2], out, lse, odd[3])
+    for g, w, x in zip(got, want, odd):
+        assert torch.equal(g, w) and g.stride() == x.stride()
 
 
 def _guarded(shape, dtype, device, model_layout=False):
@@ -407,13 +443,17 @@ def _assert_written_in_bounds(view, buf, pad):
     (2, 2, 1, 65, 64, 0, 0.0, "float32"),
     (1, 2, 2, 1, 64, 0, 0.0, "float32"),
     (1, 2, 2, 300, 256, 0, 0.0, "float32"),
-    (1, 4, 2, 130, 128, 0, 0.0, "bfloat16")])
+    (1, 4, 2, 130, 128, 0, 0.0, "bfloat16"),
+    (2, 16, 2, 200, 64, 0, 0.0, "float32"),
+    (2, 14, 1, 200, 64, 0, 0.0, "bfloat16")])
 def test_flash_kernels_write_only_their_outputs(cuda, B, H, Hkv, S, D, win,
                                                 cap, dtype, model_layout):
-    """The forward, dQ and dK/dV kernels, launched into outputs that sit
-    between NaN guards of a whole tile of rows, at ragged lengths: no
-    guard element changes, every output element is written, the inputs
-    are left as they were, and the results equal the wrappers' bits."""
+    """The forward, dQ and dK/dV kernels (and, when H > Hkv, the group
+    sum), launched into outputs that sit between NaN guards of a whole
+    tile of rows, at ragged lengths, with the dK/dV partials' scratch
+    NaN-filled between guards too: no guard element changes, every
+    output and scratch element is written, the inputs are left as they
+    were, and the results equal the wrappers' bits."""
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device=cuda).manual_seed(S * D + H + 2)
     q, k, v, do = (torch.randn(B, S, h, D, generator=gen, device=cuda)
@@ -433,8 +473,17 @@ def test_flash_kernels_write_only_their_outputs(cuda, B, H, Hkv, S, D, win,
                    cap)
     k_g, k_buf, k_pad = _guarded(k.shape, tdt, cuda, model_layout)
     v_g, v_buf, v_pad = _guarded(k.shape, tdt, cuda, model_layout)
+    part = None
+    if H > Hkv:
+        part, p_buf, p_pad = _guarded((2, B, H, S, D), torch.float32, cuda)
     fa._bwd_launch("dkv", q, k, v, do, lse, delta, [k_g, v_g], True, win,
-                   scale, cap)
+                   scale, cap, part)
+    if part is not None:
+        torch.cuda.synchronize()
+        _assert_written_in_bounds(part, p_buf, p_pad)
+        assert bool(k_buf.isnan().all()) and bool(v_buf.isnan().all()), \
+            "with H > Hkv the dK/dV kernel writes only its partials"
+        fa._group_sum_launch(part, k_g, v_g)
     torch.cuda.synchronize()
     for view, buf, pad, want in ((o_g, o_buf, o_pad, out),
                                  (l_g, l_buf, l_pad, lse),
@@ -567,17 +616,21 @@ def test_fused_step_on_card_matches_cpu(cuda, C, K, rows, M, coefs):
         step = dist.make_csmaafl_step(cfg, fed, attn_impl="pallas",
                                       device=dev)
         before = (fa.flash_attention_bwd.launches_dkv,
-                  wa.weighted_agg_flat2d.launches)
+                  wa.weighted_agg_flat2d.launches,
+                  fa.flash_attention_bwd.launches_group_sum)
         new, _ = step(tree_map(lambda t: t.to(dev), p_cpu), batches,
                       coefs, 1e-2)
         torch.cuda.synchronize()
         res[dev.type] = (new, fa.flash_attention_bwd.launches_dkv
                          - before[0],
-                         wa.weighted_agg_flat2d.launches - before[1])
-    (c_new, c_n, c_agg), (g_new, g_n, g_agg) = res["cpu"], res["cuda"]
+                         wa.weighted_agg_flat2d.launches - before[1],
+                         fa.flash_attention_bwd.launches_group_sum
+                         - before[2])
+    (c_new, c_n, c_agg, c_sum), (g_new, g_n, g_agg, g_sum) = \
+        res["cpu"], res["cuda"]
     grads = C * K if K > 1 else M
-    assert (c_n, c_agg) == (0, 0)
-    assert g_n == cfg.num_layers * grads
+    assert (c_n, c_agg, c_sum) == (0, 0, 0)
+    assert g_n == g_sum == cfg.num_layers * grads   # 4 heads over 2
     assert g_agg == (len(leaves(p_cpu)) if K > 1 else 0)
     for a, b in zip(leaves(g_new), leaves(c_new)):
         assert float((a.cpu() - b).abs().max()) <= \
